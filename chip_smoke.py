@@ -7,27 +7,46 @@
 2. Builds every CUDA kernel of the port from ``src/repro_torch/csrc``
    (one ``nvcc`` per source, in parallel) and prints the build time.
 3. Packs smollm-135m at full width and depth (30 layers, seeded random
-   weights) into int3 Iris streams, then holds each kernel against its
-   plain PyTorch version on the card at the main path's shapes:
-   ``stream_matmul`` for the 7 matrices of a layer at M in {1, 4, 8} (the
-   decode step pads M to 8) plus one ragged shape, and
-   ``stream_attention`` at B=4, smax=256, H=9, Hkv=3, hd=64, int3.  Prints
+   weights) into int3 Iris streams, then holds ``stream_matmul`` and
+   ``stream_attention`` against their plain PyTorch versions on the card
+   at the main path's shapes (as in the first slice).
+4. Front door at full width: ``repro_torch.api.plan`` of one smollm layer
+   as 14 element arrays (int3 codes and bf16 scale patterns of the 7
+   matrices, taken from layer 0 of the int3 tree), C_max 3025.  The
+   ``cuda`` pack is byte-equal to the ``numpy`` pack; the ``cuda`` fused
+   and per-slot decodes equal the ``numpy`` decode and the input codes.
+   Then ``compare(PAPER_EXAMPLE)`` (C_max 19/13/13/9) and ``cuda`` round
+   trips of ``PAPER_EXAMPLE`` and ``INV_HELMHOLTZ`` (three 64-bit arrays,
+   two u32 fields a piece), every array through the kernels.
+5. int4 pack on the card: ``pack_tree`` at full width and depth packs
+   each layer with one ``pack_layout_fused`` launch; 30/30 layer streams
+   byte-equal to the host ``pack_compiled`` of the quantized pieces.
+6. Whole-stack restore: ``unpack_streams`` of the int3 and the int4 tree
+   (one ``decode_layout_fused`` launch per layer) rebuilds scales (and
+   the int4 views) equal to the tree's; each layer's decode equals the
+   host ``unpack_indexed``, the quantized codes and the scale patterns.
+7. Each new kernel against its plain version at the main path's shapes:
+   ``packed_matmul`` (the 7 int4 matrices of a layer at M=4, the served
+   batch),
+   ``pack_layout_fused`` (one int4 layer), ``decode_layout_fused`` (one
+   int3 layer) and ``decode_slot`` (the front door's 2170 slots).  Prints
    max errors and times: the kernel, its plain version, one PyTorch
-   library call of the same function as a yardstick (never used by the
-   port), and the least time the card could take (bytes over 3.35 TB/s
-   or f32 FLOPs over 67 TFLOP/s, whichever is larger).  All layers share
-   one set of offset tables, so the bound counts them once per decode
-   step, spread over the layers; the cold-L2 figure (tables read on
-   every call) is printed beside it.
-4. Serves: 8 teacher-forced decode steps with ragged slots and positions
-   through the kernels, each against the same step through the plain
-   versions over the KV pages the kernels' step wrote, then ``Engine`` with ``PackedAdapter(kv="packed",
-   kv_bits=3)``, batch 4, max_seq 256, 8 requests of 16 new tokens.
-   Launch counters are zeroed just before the run and read just after;
-   both kernels must have launched.  Then a ``torch.profiler`` window
-   over 4 steady engine steps: time by operator, kernel launches per
-   step and the device's busy share of the window.
-5. Prints one JSON ``kernels`` line, the card line again, and last
+   library call of the same function where there is one (never used by
+   the port), and the least time the card could take (bytes over
+   3.35 TB/s or f32 FLOPs over 67 TFLOP/s, whichever is larger).  Tables
+   that all layers of a stack share are counted once per stack (spread
+   over the layers); the cold figure (tables read on every call) is
+   printed beside it.
+8. Serves int4 and int3: 8 teacher-forced ragged decode steps through the
+   kernels, each against the same step through the plain versions over
+   the KV pages the kernels' step wrote (and, for int4, against the
+   stream-direct weights on the same state, bit for bit), then ``Engine``
+   with ``PackedAdapter(kv="packed")``, batch 4, max_seq 256, 8 requests
+   of 16 new tokens.  Launch counters are zeroed just before each path
+   and read just after: int4 serving launches ``packed_matmul`` 7 x 30
+   times per step and ``stream_matmul`` never; int3 the reverse.  Then a
+   ``torch.profiler`` window over 4 steady int3 engine steps.
+9. Prints one JSON ``kernels`` line, the card line again, and last
    ``{"ok": true, "device": {...}}``.
 
 Any failed check raises, and the script exits non-zero without the last
@@ -63,6 +82,11 @@ ATT_RTOL, ATT_ATOL = 2.0 ** -7, 1e-4
 #: of bf16 residual adds; in bf16 ulps of the largest logit
 LOGIT_ULPS = 4
 DECODE_STEPS = 8
+#: rows of a decode step's matmuls: the serve phases' batch
+SERVE_M = 4
+#: the front door's layer problem plans to this C_max (by d_model; the
+#: reference planner gives the same), B_eff 0.9997 at full width
+FRONT_DOOR_C_MAX = {576: 3025}
 
 
 def card_line() -> str:
@@ -97,9 +121,10 @@ def bound_ms(n_bytes: float, flops: float) -> tuple[float, str]:
 
 
 def check_stream_matmul(tree, rng, dev) -> dict:
-    """Each of the 7 matrices at M in {1, 4, 8} plus one ragged shape.
-    The bound counts the offset tables once per decode step, over the
-    tree's layers, as the main path and the timed repeats read them."""
+    """Each of the 7 matrices at M in {1, 4, 8} plus one ragged shape;
+    timed at M=4, the served batch.  The bound counts the offset tables
+    once per decode step, over the tree's layers, as the main path and
+    the timed repeats read them."""
     import torch
 
     from repro_torch.core.exec_plan import (
@@ -135,9 +160,8 @@ def check_stream_matmul(tree, rng, dev) -> dict:
             if not torch.allclose(got, want, rtol=MM_RTOL, atol=MM_ATOL):
                 raise AssertionError(
                     f"stream_matmul {key} M={m}: max |err| {err:.3g}")
-            if m != 8:
+            if m != SERVE_M:
                 continue
-            # the main path's shape: M padded to 8 rows
             dense = sm.stream_matmul_plain(
                 torch.eye(k, device=dev), words, w_tab, s_tab, bits=bits,
                 group_size=g)
@@ -195,7 +219,7 @@ def check_stream_matmul(tree, rng, dev) -> dict:
     bms, by = bound_ms(step_bytes, layer["flops"])
     cold, cold_by = bound_ms(layer["bytes"] + layer["table_bytes"],
                              layer["flops"])
-    print(f"stream_matmul, one layer's 7 matmuls at M=8: kernel "
+    print(f"stream_matmul, one layer's 7 matmuls at M={SERVE_M}: kernel "
           f"{layer['ms']:.4f} ms  plain {layer['plain_ms']:.4f} ms  "
           f"library {layer['library_ms']:.4f} ms  bound {bms:.5f} ms "
           f"({by}; {step_bytes:.0f} B with the {layer['table_bytes']} B "
@@ -270,19 +294,22 @@ def check_stream_attention(cfg, rng, dev) -> dict:
             "bound_by": by, "library_ms": lms}
 
 
-def decode_check(cfg, tree, rng, dev) -> None:
+def decode_check(cfg, tree, rng, dev, kv_bits: int) -> None:
     """``DECODE_STEPS`` teacher-forced decode steps through the kernels.
     Each step is also taken through the plain versions over the packed KV
     pages that the kernels' step wrote (the plain step appends nothing),
     and the two steps' logits must agree within ``LOGIT_ULPS`` bf16 ulps
     of the largest logit.  Slot i joins at step i, so rows, M and
     positions are ragged and attention runs over up to ``DECODE_STEPS``
-    cached tokens.
+    cached tokens.  A tree with lane-packed views serves through
+    ``packed_matmul``; its step is also taken with the stream-direct
+    weights (``stream_matmul``) over the same pages, and the logits must
+    be equal bit for bit (the two kernels sum in one order).
 
-    A third run takes the same tokens through the plain versions on a
+    A further run takes the same tokens through the plain versions on a
     cache of its own.  How far it drifts from the kernels' run is
     printed, not checked: a last-bit difference in an f32 sum can move an
-    int3 KV code by a whole step, and later steps attend over it."""
+    int-N KV code by a whole step, and later steps attend over it."""
     import copy
 
     import torch
@@ -298,11 +325,11 @@ def decode_check(cfg, tree, rng, dev) -> None:
         return {"pos": pos, "packed_kv": kvc}
 
     b = 4
-    adapter = PackedAdapter(cfg, tree, kv="packed", kv_bits=3)
+    adapter = PackedAdapter(cfg, tree, kv="packed", kv_bits=kv_bits)
     toks = rng.integers(1, cfg.vocab_size, (DECODE_STEPS, b))
     state = adapter.init_state(b, 256)
     free = adapter.init_state(b, 256)
-    ulps, drift, top, worst, bad = [], 0.0, 0, 0.0, []
+    ulps, drift, top, worst, bad, unequal = [], 0.0, 0, 0.0, [], []
     for t in range(DECODE_STEPS):
         active = [i for i in range(b) if t >= i]
         slots = torch.tensor(active, device=dev)
@@ -312,6 +339,12 @@ def decode_check(cfg, tree, rng, dev) -> None:
                                         slot_ids=slots, kv="packed")
         want, _ = packed_decode_step(cfg, tree, read_only(state, pos), tok,
                                      slot_ids=slots, kv="packed", plain=True)
+        if tree.packed:
+            streamed, _ = packed_decode_step(
+                cfg, tree, read_only(state, pos), tok, slot_ids=slots,
+                kv="packed", weights="stream")
+            if not torch.equal(got, streamed):
+                unequal.append(t)
         alone, free = packed_decode_step(cfg, tree, free, tok,
                                          slot_ids=slots, kv="packed",
                                          plain=True)
@@ -330,22 +363,32 @@ def decode_check(cfg, tree, rng, dev) -> None:
         worst = max(worst, largest)
     n_rows = sum(min(t + 1, b) for t in range(DECODE_STEPS))
     pages, free_pages = state["packed_kv"].pages, free["packed_kv"].pages
-    print(f"decode, {DECODE_STEPS} ragged steps, kernels vs plain versions "
-          f"over the same KV pages: max|dlogit| per step in bf16 ulps of "
-          f"its largest logit {[round(u, 3) for u in ulps]} (tolerance "
-          f"{LOGIT_ULPS}; largest logit {worst:.4g}); same top-1 in "
-          f"{top}/{n_rows} rows")
-    print(f"decode, plain versions on a cache of their own: max|dlogit| "
-          f"{drift:.4g} from the kernels' run; "
+    name = f"int{tree.spec.bits} weights, int{kv_bits} KV"
+    print(f"decode ({name}), {DECODE_STEPS} ragged steps, kernels vs plain "
+          f"versions over the same KV pages: max|dlogit| per step in bf16 "
+          f"ulps of its largest logit {[round(u, 3) for u in ulps]} "
+          f"(tolerance {LOGIT_ULPS}; largest logit {worst:.4g}); same "
+          f"top-1 in {top}/{n_rows} rows")
+    if tree.packed:
+        print(f"decode ({name}): weights='packed' (packed_matmul) vs "
+              f"weights='stream' (stream_matmul) over the same pages: "
+              f"{DECODE_STEPS - len(unequal)}/{DECODE_STEPS} steps "
+              f"bit-equal")
+    print(f"decode ({name}), plain versions on a cache of their own: "
+          f"max|dlogit| {drift:.4g} from the kernels' run; "
           f"{int((pages != free_pages).sum())} of {pages.numel()} KV page "
           f"words differ")
     if bad:
         raise AssertionError(f"decode steps {bad}: logits beyond "
                              f"{LOGIT_ULPS} bf16 ulps of the plain run")
+    if unequal:
+        raise AssertionError(f"decode steps {unequal}: packed and stream "
+                             f"weights differ")
 
 
-def serve(cfg, tree, prompts) -> dict:
-    """The main path: Engine over PackedAdapter(kv='packed'), counted."""
+def serve(cfg, tree, prompts, kv_bits: int, per_step: dict) -> dict:
+    """A main path: Engine over PackedAdapter(kv='packed'), counted.
+    ``per_step`` is each kernel's launches per engine step."""
     import torch
 
     from repro_torch.engine import (
@@ -354,10 +397,11 @@ def serve(cfg, tree, prompts) -> dict:
         EngineRequest,
         PackedAdapter,
     )
+    from repro_torch.kernels import packed_matmul as pm
     from repro_torch.kernels import stream_matmul as sm
     from repro_torch.kvcache import stream_attention as sa
 
-    engine = Engine(PackedAdapter(cfg, tree, kv="packed", kv_bits=3,
+    engine = Engine(PackedAdapter(cfg, tree, kv="packed", kv_bits=kv_bits,
                                   weights="auto"),
                     EngineConfig(batch_size=4, max_seq=256,
                                  max_backlog=None))
@@ -368,12 +412,15 @@ def serve(cfg, tree, prompts) -> dict:
     torch.cuda.synchronize()
     sm.launches = 0
     sa.launches = 0
+    pm.launches = 0
     t0 = time.perf_counter()
     stats = engine.run_until_drained(max_steps=2000)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    counts = {"stream_matmul": sm.launches, "stream_attention": sa.launches}
-    print(f"serve: completed={stats.completed}/{len(prompts)} "
+    counts = {"stream_matmul": sm.launches, "stream_attention": sa.launches,
+              "packed_matmul": pm.launches}
+    print(f"serve int{tree.spec.bits} weights / int{kv_bits} KV: "
+          f"completed={stats.completed}/{len(prompts)} "
           f"steps={stats.steps} tokens={stats.tokens_generated} "
           f"wall={wall:.3f} s tokens/s={stats.tokens_generated / wall:.2f} "
           f"ms/decode step={wall / max(1, stats.steps) * 1e3:.3f} "
@@ -381,14 +428,463 @@ def serve(cfg, tree, prompts) -> dict:
     if stats.completed != len(prompts):
         raise AssertionError(f"completed {stats.completed}/{len(prompts)}")
     for name, n in counts.items():
-        if n <= 0:
-            raise AssertionError(f"{name} never launched on the main path")
+        if n != per_step.get(name, 0) * stats.steps:
+            raise AssertionError(
+                f"{name}: {n} launches in {stats.steps} steps, expected "
+                f"{per_step.get(name, 0)} per step")
     for req in requests:
         if len(req.generated) != 16 or not all(
                 0 <= t < cfg.vocab_size for t in req.generated):
             raise AssertionError(f"request {req.uid}: bad tokens "
                                  f"{req.generated}")
     return counts
+
+
+def layer_mats(cfg) -> dict[str, tuple[int, int]]:
+    """(K, N) of each quantized matrix of a layer, by bundle name."""
+    d, f = cfg.d_model, cfg.d_ff
+    q, kv = cfg.n_heads * cfg.head_dim, cfg.n_kv_heads * cfg.head_dim
+    return {"wq": (d, q), "wk": (d, kv), "wv": (d, kv), "wo": (q, d),
+            "w_gate": (d, f), "w_up": (d, f), "w_down": (f, d)}
+
+
+def host_pieces(tree, layer: int) -> dict[str, np.ndarray]:
+    """Host unpack of one layer stream: bundle name -> uint64 pieces."""
+    prog = tree.exec_program()
+    names = [a.name for a in tree.layout().problem.arrays]
+    out = prog.unpack_indexed(tree.streams[layer].cpu().numpy())
+    return {names[i]: v for i, v in out.items()}
+
+
+def front_door(cfg, tree3, dev):
+    """``api.plan`` of one smollm layer as 14 element arrays (the codes
+    and scale patterns of layer 0 of the int3 tree); numpy / cuda pack
+    and numpy / cuda fused / cuda per-slot decode must agree with each
+    other and with the codes.  Then the paper's example and the inverse
+    Helmholtz problem.  Returns the plan, its packed buffer and the
+    per-slot path's ``decode_slot`` launches."""
+    import torch
+
+    from repro_torch import api
+    from repro_torch.kernels import layout_decode as ld
+    from repro_torch.kernels import layout_pack as lp
+
+    g = tree3.spec.group_size
+    mats = layer_mats(cfg)
+    specs = []
+    for name, (k, n) in mats.items():
+        specs += [(name, 3, k * n, 0), (f"{name}_scales", 16, k * n // g, 0)]
+    t0 = time.perf_counter()
+    pl = api.plan(api.make_problem(4096, specs), cache=None)
+    prog, dplan = pl.exec_program, pl.decode_plan
+    plan_s = time.perf_counter() - t0
+    pieces = host_pieces(tree3, 0)
+    codes = {}
+    for name, (k, n) in mats.items():
+        codes[name] = pieces[name][:k * n]
+        codes[f"{name}_scales"] = pieces[f"{name}_scales"][:k * n // g]
+    print(f"front door: {pl.summary()}; {dplan.n_units} decode slots "
+          f"(widest {max(s.width for s in dplan.slots)} bits), "
+          f"{prog.kernel.lanes} fused-decode lanes, {prog.n_pieces} pieces; "
+          f"planned and lowered in {plan_s:.2f} s")
+    if pl.metrics.c_max != FRONT_DOOR_C_MAX.get(cfg.d_model):
+        raise AssertionError(f"front door C_max {pl.metrics.c_max} != "
+                             f"{FRONT_DOOR_C_MAX.get(cfg.d_model)}")
+    torch.cuda.synchronize()
+    lp.launches = ld.fused_launches = ld.slot_launches = 0
+    host = pl.pack(codes)
+    buf = pl.pack(codes, backend="cuda", device=dev)
+    want = pl.decode(host)
+    fused = pl.decode(buf, backend="cuda", device=dev)
+    per_slot = pl.decode(buf, backend="cuda", fused=False, device=dev)
+    torch.cuda.synchronize()
+    counts = {"pack_layout_fused": lp.launches,
+              "decode_layout_fused": ld.fused_launches,
+              "decode_slot": ld.slot_launches}
+    if not np.array_equal(buf, host):
+        raise AssertionError("front door: cuda pack != numpy pack")
+    for what, out in (("numpy", want), ("cuda fused", fused),
+                      ("cuda per-slot", per_slot)):
+        bad = [k for k in codes if not np.array_equal(out[k], codes[k])]
+        if bad:
+            raise AssertionError(f"front door {what} decode differs: {bad}")
+    if counts != {"pack_layout_fused": 1, "decode_layout_fused": 1,
+                  "decode_slot": dplan.n_units}:
+        raise AssertionError(f"front door launches {counts}")
+    print(f"front door: cuda pack == numpy pack ({buf.nbytes} B); numpy, "
+          f"cuda fused and cuda per-slot decodes == the layer's codes "
+          f"({len(codes)} arrays); launches {counts}")
+    cmp = api.compare(api.PAPER_EXAMPLE, cache=None)
+    print("compare(PAPER_EXAMPLE): " + "; ".join(
+        f"{k} C_max={v.c_max} L_max={v.l_max} B_eff={v.efficiency:.4f}"
+        for k, v in cmp.items()))
+    if [cmp[k].c_max for k in ("naive", "homogeneous", "hls_padded",
+                               "iris")] != [19, 13, 13, 9]:
+        raise AssertionError("compare(PAPER_EXAMPLE) C_max != 19/13/13/9")
+    for name, prob in (("PAPER_EXAMPLE", api.PAPER_EXAMPLE),
+                       ("INV_HELMHOLTZ", api.INV_HELMHOLTZ)):
+        p2 = api.plan(prob, cache=None)
+        c2 = api.random_codes(prob, seed=0)
+        torch.cuda.synchronize()
+        lp.launches = ld.fused_launches = ld.slot_launches = 0
+        b2 = p2.pack(c2, backend="cuda", device=dev)
+        outs = [p2.decode(b2, backend="cuda", device=dev),
+                p2.decode(b2, backend="cuda", fused=False, device=dev)]
+        torch.cuda.synchronize()
+        n_wide = sum(s.width > 32 for s in p2.decode_plan.slots)
+        want_slots = p2.decode_plan.n_units + n_wide
+        got = (lp.launches, ld.fused_launches, ld.slot_launches)
+        if not np.array_equal(b2, p2.pack(c2)) or not all(
+                np.array_equal(o[k], c2[k]) for o in outs for k in c2):
+            raise AssertionError(f"{name}: cuda round trip failed")
+        if got != (1, 1, want_slots):
+            raise AssertionError(f"{name}: launches {got}, expected "
+                                 f"(1, 1, {want_slots})")
+        print(f"{name}: cuda pack == numpy pack; cuda fused and per-slot "
+              f"decodes == codes; {len(p2.exec_program.host_arrays)} of "
+              f"{len(prob.arrays)} arrays wider than 32 bits, on the "
+              f"kernels as two u32 fields; launches pack/fused/per-slot "
+              f"{got}")
+    return pl, buf, counts["decode_slot"]
+
+
+def quantized(params, spec) -> dict:
+    """Each quantized matrix of the stack, by tree key: ``quantize`` of
+    the dense weights (codes (L, K, N), scales (L, K/g, N))."""
+    from repro_torch.quant import quantize
+
+    blocks = params["blocks"][0]
+    return {key: quantize(blocks[key.split("/")[0]][key.split("/")[1]],
+                          spec) for key in MM_KEYS}
+
+
+def host_pack(tree, params, qts, layer: int) -> np.ndarray:
+    """Layer ``layer``'s stream packed on the host by ``pack_compiled``
+    from the quantized codes, scale and norm bit patterns."""
+    from repro_torch.core.exec_plan import pack_compiled
+    from repro_torch.core.util import pad_bundle_elements
+    from repro_torch.quant import bits16
+
+    blocks = params["blocks"][0]
+    norms = {"attn_norm": "norm1", "mlp_norm": "norm2"}
+    data = {}
+    for b in tree.manifest.bundle:
+        if b.name in norms:
+            v = bits16(blocks[norms[b.name]]["scale"][layer])
+        else:
+            name = b.name.removesuffix("_scales")
+            key = next(k for k in MM_KEYS if k.endswith("/" + name))
+            v = qts[key].codes[layer] if name == b.name \
+                else bits16(qts[key].scales[layer])
+        data[b.name] = v.reshape(-1).cpu().numpy()
+    prog, lay = tree.exec_program(), tree.layout()
+    return pack_compiled(lay, pad_bundle_elements(lay.problem, prog, data),
+                         program=prog)
+
+
+def int4_pack(cfg, params, dev):
+    """``pack_tree(int4/g32)`` at full width and depth, one
+    ``pack_layout_fused`` launch per layer: every layer stream byte-equal
+    to the host ``pack_compiled`` of the quantized pieces.  Returns the
+    tree, its quantized matrices and the pack launches."""
+    import torch
+
+    from repro_torch.kernels import layout_pack as lp
+    from repro_torch.quant import QuantSpec
+    from repro_torch.tree import pack_tree
+
+    spec = QuantSpec(bits=4, group_size=32)
+    torch.cuda.synchronize()
+    lp.launches = 0
+    t0 = time.perf_counter()
+    tree = pack_tree(cfg, params, spec, device=dev)
+    torch.cuda.synchronize()
+    t_cuda = time.perf_counter() - t0
+    launches = lp.launches
+    qts = quantized(params, spec)
+    t0 = time.perf_counter()
+    same = sum(np.array_equal(tree.streams[la].cpu().numpy(),
+                              host_pack(tree, params, qts, la))
+               for la in range(tree.n_layers))
+    t_host = time.perf_counter() - t0
+    print(f"pack int4: {tree.summary()}; pack_tree {t_cuda:.2f} s "
+          f"({launches} pack_layout_fused launches); host pack_compiled "
+          f"{t_host:.2f} s; {same}/{tree.n_layers} layer streams byte-equal")
+    if same != tree.n_layers or launches != tree.n_layers:
+        raise AssertionError("int4 pack_tree differs from the host pack")
+    return tree, qts, launches
+
+
+def stack_decode(trees, dev) -> int:
+    """The restore path: ``unpack_streams`` of each tree (one
+    ``decode_layout_fused`` launch per layer, counted) rebuilds scales and
+    views equal to the tree's.  Then each layer's decode is held against
+    the host unpack, the quantized codes and the bf16 scale patterns (for
+    a tree with lane-packed views, also the views against
+    ``pack_codes_u32`` of the decoded codes).  ``trees``: ``(tree,
+    quantized matrices)`` pairs.  Returns the restore's launches."""
+    import torch
+
+    from repro_torch.kernels import layout_decode as ld
+    from repro_torch.quant import bits16, pack_codes_u32
+    from repro_torch.tree import unpack_streams
+
+    launches = 0
+    for tree, qts in trees:
+        prog, lay = tree.exec_program(), tree.layout()
+        g = tree.spec.group_size
+        torch.cuda.synchronize()
+        ld.fused_launches = 0
+        t0 = time.perf_counter()
+        back = unpack_streams(tree.manifest, tree.streams, tree.other,
+                              device=dev)
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+        n_dec = ld.fused_launches
+        launches += n_dec
+        rebuilt = all(torch.equal(back.scales[k].view(torch.int16),
+                                  v.view(torch.int16))
+                      for k, v in tree.scales.items()) and \
+            sorted(back.packed) == sorted(tree.packed) and \
+            all(torch.equal(back.packed[k], v) for k, v in tree.packed.items())
+        bad, views_ok = [], 0
+        for la in range(tree.n_layers):
+            out = ld.decode_layout_fused(lay, tree.streams[la], program=prog)
+            host = host_pieces(tree, la)
+            for name, v in host.items():
+                if not np.array_equal(out[name].cpu().numpy()
+                                      .astype(np.uint64), v):
+                    bad.append((la, name, "host unpack"))
+            views = True
+            for key, (k, n) in tree.shapes.items():
+                b = key.split("/")[1]
+                codes = out[b][:k * n].reshape(k, n)
+                if not torch.equal(codes, qts[key].codes[la].to(torch.int64)):
+                    bad.append((la, b, "codes"))
+                pat = bits16(qts[key].scales[la]).reshape(-1)
+                if not torch.equal(out[f"{b}_scales"][:k * n // g],
+                                   pat.to(torch.int64)):
+                    bad.append((la, b, "scales"))
+                if tree.packed and not torch.equal(
+                        pack_codes_u32(codes, tree.spec.bits),
+                        tree.packed[key][la]):
+                    views = False
+            views_ok += views
+        views_note = (f"; kernel views == pack_codes_u32(decoded codes) in "
+                      f"{views_ok}/{tree.n_layers} layers") \
+            if tree.packed else ""
+        print(f"restore int{tree.spec.bits}: unpack_streams "
+              f"({back.provenance}) of {tree.n_layers} layers in "
+              f"{restore_s * 1e3:.1f} ms ({n_dec} decode_layout_fused "
+              f"launches) rebuilds scales{' and views' if tree.packed else ''}"
+              f" equal to the tree's: {rebuilt}; "
+              f"{tree.n_layers - len({b[0] for b in bad})}/{tree.n_layers} "
+              f"layer decodes equal to the host unpack, the quantized codes "
+              f"and the scale patterns{views_note}")
+        if bad or not rebuilt or n_dec != tree.n_layers or (
+                tree.packed and views_ok != tree.n_layers):
+            raise AssertionError(f"restore int{tree.spec.bits}: "
+                                 f"{bad[:5]} rebuilt={rebuilt}")
+    return launches
+
+
+def check_packed_matmul(tree, rng, dev) -> dict:
+    """Each of the 7 int4 matrices at M in {1, 4, 8} against the plain
+    version, and bit-equal to ``stream_matmul`` over the same layer's
+    stream; timed at M=4, the served batch; plus one ragged shape."""
+    import torch
+
+    from repro_torch.kernels import packed_matmul as pm
+    from repro_torch.quant import QuantSpec, pack_codes_u32, quantize
+
+    bits, g = tree.spec.bits, tree.spec.group_size
+    max_err = 0.0
+    layer = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bytes": 0,
+             "flops": 0}
+    for key in MM_KEYS:
+        pw, sc = tree.packed[key][0], tree.scales[key][0]
+        k, n = sc.shape[0] * g, sc.shape[1]
+        for m in (1, 4, 8):
+            x = torch.from_numpy(rng.standard_normal((m, k), np.float32)).to(dev)
+            got = pm.packed_matmul(x, pw, sc, bits=bits, group_size=g)
+            want = pm.packed_matmul_plain(x, pw, sc, bits=bits, group_size=g)
+            streamed = tree.matmul_direct(x, key, 0)
+            torch.cuda.synchronize()
+            err = float((got - want).abs().max())
+            max_err = max(max_err, err)
+            if not torch.allclose(got, want, rtol=MM_RTOL, atol=MM_ATOL):
+                raise AssertionError(
+                    f"packed_matmul {key} M={m}: max |err| {err:.3g}")
+            if not torch.equal(got, streamed):
+                raise AssertionError(f"packed_matmul {key} M={m} differs "
+                                     f"from stream_matmul")
+            if m != SERVE_M:
+                continue
+            dense = pm.packed_matmul_plain(torch.eye(k, device=dev), pw, sc,
+                                           bits=bits, group_size=g)
+            ms = time_ms(lambda: pm.packed_matmul(x, pw, sc, bits=bits,
+                                                  group_size=g))
+            pms = time_ms(lambda: pm.packed_matmul_plain(
+                x, pw, sc, bits=bits, group_size=g), iters=5)
+            lms = time_ms(lambda: torch.matmul(x, dense))
+            nbytes = (x.numel() * 4 + pw.numel() * 4 + sc.numel() * 2
+                      + m * n * 4)
+            flops = 2 * m * k * n
+            bms, _ = bound_ms(nbytes, flops)
+            print(f"packed_matmul {key:11s} K={k:5d} N={n:5d} M={m}: "
+                  f"kernel {ms:.4f} ms  plain {pms:.4f} ms  "
+                  f"library(matmul of dequantized W) {lms:.4f} ms  "
+                  f"bound {bms:.5f} ms  max|err| {err:.3g}")
+            layer["ms"] += ms
+            layer["plain_ms"] += pms
+            layer["library_ms"] += lms
+            layer["bytes"] += nbytes
+            layer["flops"] += flops
+    # one ragged shape: N and M off the tiles
+    k, n, m = 96, 77, 3
+    w = torch.from_numpy(rng.standard_normal((k, n), np.float32)).to(dev)
+    qt = quantize(w, QuantSpec(bits=bits, group_size=g))
+    pw = pack_codes_u32(qt.codes, bits)
+    x = torch.from_numpy(rng.standard_normal((m, k), np.float32)).to(dev)
+    got = pm.packed_matmul(x, pw, qt.scales, bits=bits, group_size=g)
+    want = pm.packed_matmul_plain(x, pw, qt.scales, bits=bits, group_size=g)
+    err = float((got - want).abs().max())
+    max_err = max(max_err, err)
+    if not torch.allclose(got, want, rtol=MM_RTOL, atol=MM_ATOL):
+        raise AssertionError(f"packed_matmul ragged: max |err| {err:.3g}")
+    bms, by = bound_ms(layer["bytes"], layer["flops"])
+    print(f"packed_matmul ragged int{bits} K={k} N={n} M={m}: max|err| "
+          f"{err:.3g}")
+    print(f"packed_matmul, one layer's 7 matmuls at M={SERVE_M}: kernel "
+          f"{layer['ms']:.4f} ms  plain {layer['plain_ms']:.4f} ms  library "
+          f"{layer['library_ms']:.4f} ms  bound {bms:.5f} ms ({by}; "
+          f"{layer['bytes']} B, {layer['flops']} f32 FLOPs); bit-equal to "
+          f"stream_matmul on every matrix")
+    return {"max_abs_err": max_err, "ms": layer["ms"],
+            "plain_ms": layer["plain_ms"], "bound_ms": bms, "bound_by": by,
+            "library_ms": layer["library_ms"]}
+
+
+def check_pack_kernel(tree, dev) -> dict:
+    """``pack_words`` on one int4 layer (its pieces from the host unpack
+    of layer 0) against the plain version and the layer's stream.  The
+    contribution tables serve every layer of the stack: the bound counts
+    them once per stack."""
+    import torch
+
+    from repro_torch.kernels import layout_pack as lp
+    from repro_torch.kernels.ref import words_tensor
+
+    prog = tree.exec_program()
+    pieces = prog.unpack_indexed(tree.streams[0].cpu().numpy())
+    flat = np.zeros(prog.n_pieces + 1, np.uint32)
+    flat[1:] = np.concatenate([pieces[i] for i in range(len(pieces))])
+    flat_t = words_tensor(flat, dev)
+    src, scode = lp.device_pack_tables(prog, dev)
+    got = lp.pack_words(flat_t, src, scode)
+    want = lp.pack_words_plain(flat_t, src, scode)
+    torch.cuda.synchronize()
+    if not torch.equal(got, want) or not torch.equal(
+            got, tree.layer_stream_words(0)):
+        raise AssertionError("pack_layout_fused differs from its plain "
+                             "version or from the layer's stream")
+    ms = time_ms(lambda: lp.pack_words(flat_t, src, scode))
+    pms = time_ms(lambda: lp.pack_words_plain(flat_t, src, scode), iters=5)
+    tab_bytes = (src.numel() + scode.numel()) * 4
+    nbytes = flat_t.numel() * 4 + got.numel() * 4
+    bms, by = bound_ms(nbytes + tab_bytes / tree.n_layers, 0)
+    cold, cold_by = bound_ms(nbytes + tab_bytes, 0)
+    print(f"pack_layout_fused int{tree.spec.bits} layer: {prog.n_pieces} "
+          f"pieces, K={src.shape[0]}, {got.numel()} words: kernel {ms:.4f} "
+          f"ms  plain {pms:.4f} ms  library none  bound {bms:.6f} ms ({by}; "
+          f"{nbytes} B with the {tab_bytes} B of tables over "
+          f"{tree.n_layers} layers); cold-L2 bound {cold:.6f} ms ({cold_by})"
+          f"  max|err| 0")
+    return {"max_abs_err": 0.0, "ms": ms, "plain_ms": pms, "bound_ms": bms,
+            "bound_by": by, "library_ms": None}
+
+
+def check_decode_kernel(trees, dev) -> dict:
+    """``decode_grid`` on one layer of each tree against the plain
+    version.  The slot table serves every layer: the bound counts it
+    once per stack.  Returns the first tree's row."""
+    import torch
+
+    from repro_torch.kernels import layout_decode as ld
+
+    rows = []
+    for tree in trees:
+        prog = tree.exec_program()
+        words = tree.layer_stream_words(0).reshape(prog.c_max, prog.words32)
+        tab, _ = ld.device_decode_tables(prog, dev)
+        got = ld.decode_grid(words, tab)
+        want = ld.decode_grid_plain(words, tab)
+        torch.cuda.synchronize()
+        if not torch.equal(got, want):
+            raise AssertionError("decode_layout_fused differs from its "
+                                 "plain version")
+        ms = time_ms(lambda: ld.decode_grid(words, tab))
+        pms = time_ms(lambda: ld.decode_grid_plain(words, tab), iters=5)
+        tab_bytes = tab.numel() * 4
+        nbytes = words.numel() * 4 + got.numel() * 4
+        bms, by = bound_ms(nbytes + tab_bytes / tree.n_layers, 0)
+        cold, cold_by = bound_ms(nbytes + tab_bytes, 0)
+        print(f"decode_layout_fused int{tree.spec.bits} layer: "
+              f"{prog.c_max} x {prog.kernel.lanes} entries: kernel "
+              f"{ms:.4f} ms  plain {pms:.4f} ms  library none  bound "
+              f"{bms:.6f} ms ({by}; {nbytes} B with the {tab_bytes} B "
+              f"table over {tree.n_layers} layers); cold-L2 bound "
+              f"{cold:.6f} ms ({cold_by})  max|err| 0")
+        rows.append({"max_abs_err": 0.0, "ms": ms, "plain_ms": pms,
+                     "bound_ms": bms, "bound_by": by, "library_ms": None})
+    return rows[0]
+
+
+def check_decode_slot(pl, buf, dev) -> dict:
+    """Every ``decode_slot`` launch of the front door's per-slot decode,
+    each against the plain version, then the whole per-slot decode
+    timed (its launches back to back)."""
+    import torch
+
+    from repro_torch.kernels import layout_decode as ld
+    from repro_torch.kernels.ops import buffer_to_u32
+
+    words = buffer_to_u32(torch.from_numpy(buf).to(dev))
+    slots = pl.decode_plan.slots
+    offs = torch.from_numpy(np.concatenate([
+        s.bit_offset + np.arange(s.lanes) * s.width for s in slots])
+        .astype(np.int32)).to(dev)
+    jobs, at = [], 0
+    for s in slots:
+        jobs.append((words[s.start_cycle:s.start_cycle + s.n_cycles],
+                     offs[at:at + s.lanes], s.width,
+                     torch.empty(s.lanes * s.n_cycles, dtype=torch.int32,
+                                 device=dev)))
+        at += s.lanes
+    for slab, o, w, out in jobs:
+        ld.decode_slot(slab, o, w, out=out)
+        if not torch.equal(out, ld.decode_slot_plain(slab, o, w)):
+            raise AssertionError("decode_slot differs from its plain version")
+
+    def run():
+        for slab, o, w, out in jobs:
+            ld.decode_slot(slab, o, w, out=out)
+
+    def run_plain():
+        for slab, o, w, _ in jobs:
+            ld.decode_slot_plain(slab, o, w)
+
+    ms = time_ms(run, iters=5, warmup=1)
+    pms = time_ms(run_plain, iters=2, warmup=1)
+    n_out = sum(job[3].numel() for job in jobs)
+    nbytes = words.numel() * 4 + offs.numel() * 4 + n_out * 4
+    bms, by = bound_ms(nbytes, 0)
+    print(f"decode_slot, the front door's per-slot decode: {len(jobs)} "
+          f"launches, {n_out} codes: kernel {ms:.4f} ms  plain {pms:.4f} ms"
+          f"  library none  bound {bms:.6f} ms ({by}; {nbytes} B)  "
+          f"max|err| 0")
+    return {"max_abs_err": 0.0, "ms": ms, "plain_ms": pms, "bound_ms": bms,
+            "bound_by": by, "library_ms": None}
 
 
 def profile_steps(cfg, tree, prompts, n_steps: int = 4) -> None:
@@ -450,9 +946,6 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     from repro_torch.configs import SMOLLM_135M
     from repro_torch.kernels import build
-    from repro_torch.models.params import init_params
-    from repro_torch.quant import QuantSpec
-    from repro_torch.tree import pack_tree
 
     card = card_line()
     print(f"card: {card}")
@@ -467,49 +960,85 @@ def main() -> int:
         for line in build.ptxas_report(name).splitlines():
             if "registers" in line or "spill" in line:
                 print(f"ptxas {name}: {line.strip()}")
+    run(SMOLLM_135M, torch.device("cuda"))
+    print(f"card: {card}")
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
 
-    dev = torch.device("cuda")
-    cfg = SMOLLM_135M
+
+def run(cfg, dev) -> None:
+    """Every phase after the build, on ``cfg`` (smollm-135m at full
+    width and depth from :func:`main`); prints the ``kernels`` line."""
+    import torch
+
+    from repro_torch.models.params import init_params
+    from repro_torch.quant import QuantSpec
+    from repro_torch.tree import pack_tree
+
     rng = np.random.default_rng(0)
     t0 = time.perf_counter()
     params = init_params(cfg, torch.Generator(device=dev).manual_seed(0),
                          device=dev)
     tree = pack_tree(cfg, params, QuantSpec(bits=3, group_size=32),
                      device=dev)
-    del params
     tree.stream_words()
     torch.cuda.synchronize()
-    print(f"pack: {tree.summary()} in {time.perf_counter() - t0:.2f} s")
+    print(f"pack int3: {tree.summary()} in {time.perf_counter() - t0:.2f} s")
 
     rows = {"stream_matmul": check_stream_matmul(tree, rng, dev),
             "stream_attention": check_stream_attention(cfg, rng, dev)}
+    pl, buf, slot_launches = front_door(cfg, tree, dev)
+    tree4, qts4, pack_launches = int4_pack(cfg, params, dev)
+    decode_launches = stack_decode(
+        ((tree, quantized(params, tree.spec)), (tree4, qts4)), dev)
+    del params
+    rows["packed_matmul"] = check_packed_matmul(tree4, rng, dev)
+    rows["pack_layout_fused"] = check_pack_kernel(tree4, dev)
+    rows["decode_layout_fused"] = check_decode_kernel((tree, tree4), dev)
+    rows["decode_slot"] = check_decode_slot(pl, buf, dev)
 
     prompts = [rng.integers(1, cfg.vocab_size,
                             int(rng.integers(2, 6))).tolist()
                for _ in range(8)]
-    decode_check(cfg, tree, rng, dev)
-    counts = serve(cfg, tree, prompts)
+    per_layer = {"stream_attention": cfg.n_layers}
+    decode_check(cfg, tree4, rng, dev, kv_bits=4)
+    counts4 = serve(cfg, tree4, prompts, 4,
+                    {**per_layer, "packed_matmul": 7 * cfg.n_layers})
+    decode_check(cfg, tree, rng, dev, kv_bits=3)
+    counts3 = serve(cfg, tree, prompts, 3,
+                    {**per_layer, "stream_matmul": 7 * cfg.n_layers})
     profile_steps(cfg, tree, prompts)
 
+    launches = {"stream_matmul": counts3["stream_matmul"],
+                "stream_attention": counts3["stream_attention"],
+                "packed_matmul": counts4["packed_matmul"],
+                "pack_layout_fused": pack_launches,
+                "decode_layout_fused": decode_launches,
+                "decode_slot": slot_launches}
     meta = {
         "stream_matmul": ("src/repro_torch/csrc/stream_matmul.cu",
                           "src/repro/kernels/stream_matmul.py:183"),
         "stream_attention": ("src/repro_torch/csrc/stream_attention.cu",
                              "src/repro/kvcache/kernels/"
                              "stream_attention.py:99"),
+        "packed_matmul": ("src/repro_torch/csrc/packed_matmul.cu",
+                          "src/repro/kernels/packed_matmul.py:128"),
+        "pack_layout_fused": ("src/repro_torch/csrc/layout_pack.cu",
+                              "src/repro/kernels/layout_pack.py:125"),
+        "decode_layout_fused": ("src/repro_torch/csrc/layout_decode.cu",
+                                "src/repro/kernels/layout_decode.py:135"),
+        "decode_slot": ("src/repro_torch/csrc/layout_decode.cu",
+                        "src/repro/kernels/layout_decode.py:234"),
     }
     kernels = []
     for name, row in rows.items():
         src, replaces = meta[name]
         kernels.append({"name": name, "route": "cuda", "source": src,
-                        "replaces": replaces, "launches": counts[name],
+                        "replaces": replaces, "launches": launches[name],
                         **row})
     print(json.dumps({"kernels": kernels}))
-    print(f"card: {card}")
-    print(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
-        "count": torch.cuda.device_count()}}))
-    return 0
 
 
 if __name__ == "__main__":

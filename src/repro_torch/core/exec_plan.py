@@ -1,13 +1,18 @@
 """Compiled execution plans: lower a :class:`Layout` once into flat tables.
 
-Own copy of ``src/repro/core/exec_plan.py`` for the port, trimmed to the
-serving path: :func:`lower_exec` and :class:`ExecProgram` (with
-``buffer_words32`` and ``stream_bit_offsets``), the host pack
-:func:`pack_compiled`, the stream-direct operand tables
-(:class:`StreamTables`, :func:`stream_matmul_tables`) and the gather-only
-contribution tables :func:`pack_kernel_tables` that the KV-cache append
-path derives its write tables from.  The fused-decode slot table
-(``KernelTable``) and the host unpack stay in the reference.
+Own copy of ``src/repro/core/exec_plan.py`` for the port:
+:func:`lower_exec` and :class:`ExecProgram` (the host pack and unpack
+``pack_indexed`` / ``unpack_indexed``, the u32 and u64 word views,
+``stream_bit_offsets``), the fused-decode slot table
+(:class:`KernelTable`, consumed by ``csrc/layout_decode.cu``), the named
+host entry points :func:`pack_compiled` / :func:`unpack_compiled`, the
+stream-direct operand tables (:class:`StreamTables`,
+:func:`stream_matmul_tables`) and the gather-only contribution tables
+:func:`pack_kernel_tables` (the KV-cache append path derives its write
+tables from them).  :func:`split_pieces` cuts every piece into u32-sized
+fields, so that pieces of up to 64 bits also run on the CUDA kernels:
+:func:`split_decode_table` and :func:`split_pack_tables` are the tables
+that ``csrc/layout_decode.cu`` and ``csrc/layout_pack.cu`` consume.
 
 Bit conventions: bus cycle = one row of ``m`` bits, element LSB at its
 bit offset, rows little-endian in bytes.  The uint64 word views rely on
@@ -20,9 +25,25 @@ import dataclasses
 import numpy as np
 
 from .layout import Layout
+from .util import round_up
 
-#: Piece widths above this cannot be extracted with one u32 funnel shift.
+#: Widest field a CUDA kernel moves in one u32 funnel shift; wider
+#: pieces (up to 64 bits) travel as two such fields (:func:`split_pieces`).
 KERNEL_MAX_WIDTH = 32
+
+#: Kernel slot-table encoding: ``bit_offset | width << _TAB_WIDTH_SHIFT``.
+_TAB_WIDTH_SHIFT = 20
+
+
+@dataclasses.dataclass(eq=False)
+class KernelTable:
+    """Static per-row slot table for the fused decode kernel."""
+
+    words32: int                 # u32 words per bus row
+    lanes: int                   # table width: max decoded pieces per row
+    tab: np.ndarray              # (c_max, lanes) uint32, 0 = empty lane
+    #: (array_index, flat indices ``row * lanes + col`` in piece order)
+    gathers: tuple[tuple[int, np.ndarray], ...]
 
 
 @dataclasses.dataclass(eq=False)
@@ -50,6 +71,9 @@ class ExecProgram:
     hi_base: tuple[int, ...]
     pack_layers: tuple[tuple[np.ndarray, np.ndarray], ...]
     n_contribs: int
+    kernel: KernelTable
+    host_arrays: tuple[int, ...]         # arrays with piece width > 32
+    #   (the reference decodes them on the host; the port splits them)
     #: memo of tables derived from this program (pack tables, KV append
     #: and read tables), shared by every rebind of the layout
     tables: dict = dataclasses.field(default_factory=dict)
@@ -81,6 +105,42 @@ class ExecProgram:
                 flat[words] |= cv[sel]
         return flat.view(np.uint8).reshape(
             self.c_max, self.wpr * 8)[:, :self.row_bytes]
+
+    def unpack_array(self, flat: np.ndarray, i: int) -> np.ndarray:
+        """Gather array ``i``'s pieces from the flat uint64 word vector."""
+        lo, hi = self.piece_base[i], self.piece_base[i + 1]
+        w, sh = self.word[lo:hi], self.shift[lo:hi]
+        ew = self.elem_widths[i]
+        v = flat[w] >> sh
+        straddle = sh > np.uint64(64 - ew)
+        if straddle.any():
+            # (64 - sh) & 63 is exact where straddle holds (sh >= 1 there)
+            part = flat[np.minimum(w + 1, flat.shape[0] - 1)] \
+                << ((np.uint64(64) - sh) & np.uint64(63))
+            v |= np.where(straddle, part, np.uint64(0))
+        if ew < 64:
+            v &= np.uint64((1 << ew) - 1)
+        return v
+
+    def unpack_indexed(self, buf: np.ndarray,
+                       arrays: tuple[int, ...] | None = None,
+                       ) -> dict[int, np.ndarray]:
+        """Host unpack of the ``(c_max, m/8)`` buffer into uint64 piece
+        vectors, keyed by array index."""
+        flat = self.buffer_words64(buf)
+        idxs = range(len(self.piece_depths)) if arrays is None else arrays
+        return {i: self.unpack_array(flat, i) for i in idxs}
+
+    def buffer_words64(self, buf: np.ndarray) -> np.ndarray:
+        """(c_max, m/8) uint8 rows -> flat little-endian uint64 words."""
+        if buf.shape != (self.c_max, self.row_bytes):
+            raise ValueError(
+                f"buffer shape {buf.shape} != "
+                f"({self.c_max}, {self.row_bytes})"
+            )
+        padded = np.zeros((self.c_max, self.wpr * 8), dtype=np.uint8)
+        padded[:, :self.row_bytes] = buf
+        return padded.view(np.uint64).reshape(-1)
 
     def buffer_words32(self, buf: np.ndarray) -> np.ndarray:
         """(c_max, m/8) uint8 rows -> (c_max, words32) uint32 rows."""
@@ -267,6 +327,8 @@ def _lower(layout: Layout, elem_widths: tuple[int, ...]) -> ExecProgram:
         hi_tabs.append((loc, shr))
         hi_base.append(hi_base[-1] + loc.shape[0])
 
+    kernel, host = _lower_kernel_table(
+        prob, elem_widths, piece_base, word, shift, wpr, c_max, row_bytes)
     return ExecProgram(
         m=prob.m, c_max=c_max, row_bytes=row_bytes, wpr=wpr,
         words32=-(-row_bytes // 4),
@@ -274,7 +336,74 @@ def _lower(layout: Layout, elem_widths: tuple[int, ...]) -> ExecProgram:
         piece_base=piece_base, word=word.astype(idx_t),
         shift=shift, hi_tabs=tuple(hi_tabs), hi_base=tuple(hi_base),
         pack_layers=tuple(layers), n_contribs=n_contribs,
+        kernel=kernel, host_arrays=host,
     )
+
+
+def _lower_kernel_table(prob, elem_widths, piece_base, word, shift,
+                        wpr, c_max, row_bytes,
+                        ) -> tuple[KernelTable, tuple[int, ...]]:
+    """Row-major slot encoding for the fused decode kernel.
+
+    Kernel-eligible pieces (width <= 32) are sorted by (row, bit offset)
+    and assigned dense per-row lane columns; ``tab[row, col]`` encodes
+    ``bit_offset | width << 20`` (0 = empty).  The per-array gather
+    indices invert the assignment: ``grid.ravel()[gathers[i]]`` is array
+    ``i``'s piece stream.
+    """
+    if prob.m > (1 << _TAB_WIDTH_SHIFT):
+        raise ValueError(
+            f"bus width {prob.m} exceeds the kernel slot-table encoding"
+        )
+    kernel_arrays = tuple(
+        i for i, ew in enumerate(elem_widths) if ew <= KERNEL_MAX_WIDTH)
+    host_arrays = tuple(
+        i for i, ew in enumerate(elem_widths) if ew > KERNEL_MAX_WIDTH)
+    words32 = -(-row_bytes // 4)
+    if not kernel_arrays:
+        empty = KernelTable(words32=words32, lanes=0,
+                            tab=np.zeros((c_max, 0), dtype=np.uint32),
+                            gathers=())
+        return empty, host_arrays
+
+    ids = np.concatenate([
+        np.arange(piece_base[i], piece_base[i + 1]) for i in kernel_arrays])
+    rows = word[ids] // wpr
+    bit_in_row = (word[ids] - rows * wpr) * 64 + shift[ids].astype(np.int64)
+    widths = np.empty(ids.shape[0], dtype=np.int64)
+    for i in kernel_arrays:
+        widths[(ids >= piece_base[i]) & (ids < piece_base[i + 1])] = \
+            elem_widths[i]
+    lanes, tab, flat = _slot_table(c_max, rows, bit_in_row, widths)
+    garr = np.full(piece_base[-1], -1, dtype=np.int64)
+    garr[ids] = flat
+    gathers = tuple(
+        (i, garr[piece_base[i]:piece_base[i + 1]].astype(np.int32))
+        for i in kernel_arrays)
+    return KernelTable(words32=words32, lanes=lanes, tab=tab,
+                       gathers=gathers), host_arrays
+
+
+def _slot_table(c_max: int, rows: np.ndarray, bits: np.ndarray,
+                widths: np.ndarray) -> tuple[int, np.ndarray, np.ndarray]:
+    """Dense per-row lane columns for ``(row, bit offset, width)`` fields
+    (each at most 32 bits): fields sorted by (row, bit offset) fill each
+    row's columns in order, ``lanes`` rounded up to 128.  Returns
+    ``(lanes, tab, flat)``: the ``(c_max, lanes)`` uint32 table holding
+    ``bit_offset | width << 20`` (0 = empty lane) and each field's flat
+    grid index ``row * lanes + col``, in input order."""
+    order = np.lexsort((bits, rows))
+    rows_s = rows[order]
+    counts = np.bincount(rows_s, minlength=c_max)
+    lanes = round_up(max(int(counts.max()), 1), 128)
+    starts = np.concatenate([[0], np.cumsum(counts)[:-1]])
+    cols = np.arange(order.shape[0]) - starts[rows_s]
+    tab = np.zeros((c_max, lanes), dtype=np.uint32)
+    tab[rows_s, cols] = bits[order].astype(np.uint32) \
+        | (widths[order].astype(np.uint32) << _TAB_WIDTH_SHIFT)
+    flat = np.empty(order.shape[0], dtype=np.int64)
+    flat[order] = rows_s * lanes + cols
+    return lanes, tab, flat
 
 
 def pack_compiled(layout: Layout, arrays: dict[str, np.ndarray], *,
@@ -303,6 +432,19 @@ def pack_compiled(layout: Layout, arrays: dict[str, np.ndarray], *,
     return prog.pack_indexed(data)
 
 
+def unpack_compiled(layout: Layout, buf: np.ndarray, *,
+                    elem_widths: tuple[int, ...] | None = None,
+                    program: ExecProgram | None = None,
+                    ) -> dict[str, np.ndarray]:
+    """Vectorized host unpack, the inverse of :func:`pack_compiled`:
+    ``{name: uint64 piece codes}``."""
+    prog = program if program is not None \
+        else lower_exec(layout, elem_widths)
+    out = prog.unpack_indexed(np.asarray(buf))
+    names = [a.name for a in layout.problem.arrays]
+    return {names[i]: v for i, v in out.items()}
+
+
 def pack_kernel_tables(prog: ExecProgram,
                        ) -> tuple[np.ndarray, np.ndarray, int]:
     """Gather-only contribution tables over the u32 word view.
@@ -319,7 +461,6 @@ def pack_kernel_tables(prog: ExecProgram,
     cached = prog.tables.get(key)
     if cached is not None:
         return cached
-    w32 = prog.words32
     kernel_arrays = [i for i, ew in enumerate(prog.elem_widths)
                      if ew <= KERNEL_MAX_WIDTH]
     if not kernel_arrays:
@@ -337,11 +478,25 @@ def pack_kernel_tables(prog: ExecProgram,
     for i in kernel_arrays:
         sel = (ids >= prog.piece_base[i]) & (ids < prog.piece_base[i + 1])
         widths[sel] = prog.elem_widths[i]
-    w0 = bit >> 5
-    sh = bit & 31
+    tables = _contribution_tables(prog, ids + 1, rows, bit, widths)
+    prog.tables[key] = tables
+    return tables
+
+
+def _contribution_tables(prog: ExecProgram, src: np.ndarray,
+                         rows: np.ndarray, bits: np.ndarray,
+                         widths: np.ndarray,
+                         ) -> tuple[np.ndarray, np.ndarray, int]:
+    """Invert ``(source index, row, bit offset, width)`` fields (each at
+    most 32 bits) into per-u32-word contribution tables (see
+    :func:`pack_kernel_tables`); a field straddling a word boundary
+    contributes to both words."""
+    w32 = prog.words32
+    w0 = bits >> 5
+    sh = bits & 31
     strad = sh + widths > 32
     gw = np.concatenate([rows * w32 + w0, (rows * w32 + w0 + 1)[strad]])
-    src = np.concatenate([ids, ids[strad]])
+    src = np.concatenate([src, src[strad]])
     sc = np.concatenate([sh, sh[strad] - 32])
     order = np.argsort(gw, kind="stable")
     gw, src, sc = gw[order], src[order], sc[order]
@@ -351,9 +506,74 @@ def pack_kernel_tables(prog: ExecProgram,
     k = int(rank.max()) + 1 if rank.size else 1
     src_t = np.zeros(prog.c_max * w32 * k, dtype=np.int32)
     sc_t = np.zeros(prog.c_max * w32 * k, dtype=np.int32)
-    src_t[gw * k + rank] = src + 1          # 0 = empty slot sentinel
+    src_t[gw * k + rank] = src              # 0 = empty slot sentinel
     sc_t[gw * k + rank] = sc
-    tables = (src_t.reshape(prog.c_max, w32 * k),
-              sc_t.reshape(prog.c_max, w32 * k), k)
-    prog.tables[key] = tables
-    return tables
+    return (src_t.reshape(prog.c_max, w32 * k),
+            sc_t.reshape(prog.c_max, w32 * k), k)
+
+
+# ----------------------------------------------------------------------
+# u32 sub-pieces: every array on the CUDA kernels
+# ----------------------------------------------------------------------
+def split_pieces(prog: ExecProgram
+                 ) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """Every piece as u32-sized sub-pieces, for the CUDA kernels.
+
+    A piece of at most 32 bits is one sub-piece.  A wider one (the
+    program's ``host_arrays``, up to 64 bits) is two: its low 32 bits at
+    its offset and its remaining ``width - 32`` bits 32 bits further on,
+    in the same bus row.  Sub-piece ``j < n_pieces`` is piece ``j`` (or
+    its low half); sub-piece ``n_pieces + h`` is the high half of the
+    ``h``-th wide piece, in piece order.  Returns ``(rows, bits, widths)``
+    (int64, one entry per sub-piece; ``bits`` is the offset in the row).
+    Memoized on the program.
+    """
+    key = ("split_pieces",)
+    cached = prog.tables.get(key)
+    if cached is not None:
+        return cached
+    word = prog.word.astype(np.int64)
+    rows = word // prog.wpr
+    bits = (word - rows * prog.wpr) * 64 + prog.shift.astype(np.int64)
+    widths = np.empty(prog.n_pieces, dtype=np.int64)
+    for i, ew in enumerate(prog.elem_widths):
+        widths[prog.piece_base[i]:prog.piece_base[i + 1]] = ew
+    wide = np.concatenate([
+        np.arange(prog.piece_base[i], prog.piece_base[i + 1])
+        for i in prog.host_arrays] or [np.zeros(0, np.int64)])
+    out = (np.concatenate([rows, rows[wide]]),
+           np.concatenate([bits, bits[wide] + KERNEL_MAX_WIDTH]),
+           np.concatenate([np.minimum(widths, KERNEL_MAX_WIDTH),
+                           widths[wide] - KERNEL_MAX_WIDTH]))
+    prog.tables[key] = out
+    return out
+
+
+def split_decode_table(prog: ExecProgram) -> tuple[np.ndarray, np.ndarray]:
+    """Slot table of the fused decode kernel over every sub-piece of
+    :func:`split_pieces`: ``(tab, flat)``, the ``(c_max, lanes)`` uint32
+    table and each sub-piece's flat grid index.  Without arrays wider
+    than 32 bits that is :attr:`ExecProgram.kernel`, which the lowering
+    has already built, so it is taken as it is."""
+    if not prog.host_arrays:
+        flat = np.zeros(prog.n_pieces, dtype=np.int64)
+        for i, g in prog.kernel.gathers:
+            flat[prog.piece_base[i]:prog.piece_base[i + 1]] = g
+        return prog.kernel.tab, flat
+    rows, bits, widths = split_pieces(prog)
+    if not rows.size:
+        return (np.zeros((prog.c_max, 0), dtype=np.uint32),
+                np.zeros(0, dtype=np.int64))
+    _lanes, tab, flat = _slot_table(prog.c_max, rows, bits, widths)
+    return tab, flat
+
+
+def split_pack_tables(prog: ExecProgram
+                      ) -> tuple[np.ndarray, np.ndarray, int]:
+    """:func:`pack_kernel_tables` over every sub-piece of
+    :func:`split_pieces`: ``src`` indexes the vector ``[0, sub-piece 0,
+    sub-piece 1, ...]``.  Without arrays wider than 32 bits these are
+    the reference's tables."""
+    rows, bits, widths = split_pieces(prog)
+    return _contribution_tables(
+        prog, np.arange(1, rows.shape[0] + 1), rows, bits, widths)

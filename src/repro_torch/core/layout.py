@@ -1,10 +1,10 @@
 """Layout IR: the output of the Iris scheduler.
 
-Own copy of ``src/repro/core/layout.py``, trimmed to what the serving
-path reads: the interval-native :class:`Layout` (count runs, vectorized
-legality check, lazy intervals, validation, rebind).  The paper metrics
-(``LayoutMetrics``: lateness, FIFO depths), the per-cycle views and the
-ASCII renderer stay in the reference.
+Own copy of ``src/repro/core/layout.py``: the interval-native
+:class:`Layout` (count runs, vectorized legality check, lazy intervals,
+validation, rebind), the paper metrics (:class:`LayoutMetrics`: B_eff,
+lateness, FIFO depths, write ports) and the ASCII renderer.  The
+per-cycle ``Segment`` views stay in the reference.
 
 A :class:`Layout` assigns every element of every array to a (cycle, bit
 offset) position on the bus, in due-date space.  The ground truth is a
@@ -36,6 +36,28 @@ class Interval:
     n_cycles: int
     slots: tuple[tuple[int, int, int], ...]   # (array, bit_offset, n_elems)
     elem_base: tuple[int, ...]                # first element idx per slot
+
+
+@dataclasses.dataclass
+class LayoutMetrics:
+    """Paper metrics: Eq. 1 efficiency, lateness, FIFO depths."""
+
+    c_max: int
+    efficiency: float                  # B_eff = p_tot / (C_max * m)
+    lateness: dict[str, int]           # L_j per array
+    l_max: int
+    completion: dict[str, int]         # C_j per array (1-based cycle count)
+    fifo_depth: dict[str, int]         # decode-module buffering per array
+    wasted_bits: int                   # C_max*m - p_tot
+
+    def row(self) -> dict[str, object]:
+        return {
+            "C_max": self.c_max,
+            "B_eff": round(self.efficiency, 4),
+            "L_max": self.l_max,
+            "FIFO": dict(self.fifo_depth),
+            "wasted_bits": self.wasted_bits,
+        }
 
 
 class Layout:
@@ -217,3 +239,80 @@ class Layout:
             self._build_intervals()
         assert self._intervals is not None
         return self._intervals
+
+    # ------------------------------------------------------------------
+    # metrics (paper §4, §6), O(intervals)
+    # ------------------------------------------------------------------
+    def metrics(self) -> LayoutMetrics:
+        prob = self.problem
+        last = [0] * len(prob.arrays)
+        for iv in self.intervals():
+            for (array, _off, _n) in iv.slots:
+                last[array] = max(last[array], iv.start_cycle + iv.n_cycles)
+        completion = {a.name: last[i] for i, a in enumerate(prob.arrays)}
+        lateness = {a.name: last[i] - a.due for i, a in enumerate(prob.arrays)}
+        fifo = {a.name: d for a, d in zip(prob.arrays, self.fifo_depths())}
+        c_max = self.c_max
+        return LayoutMetrics(
+            c_max=c_max,
+            efficiency=prob.p_tot / (c_max * prob.m),
+            lateness=lateness,
+            l_max=max(lateness.values()),
+            completion=completion,
+            fifo_depth=fifo,
+            wasted_bits=c_max * prob.m - prob.p_tot,
+        )
+
+    def fifo_depths(self) -> list[int]:
+        """Decode-side buffering per array (paper §5 running sum): the
+        read module forwards one element per array per cycle, so the
+        surplus ``e_c - 1`` elements of a cycle are staged."""
+        n = len(self.problem.arrays)
+        backlog = [0] * n
+        depth = [0] * n
+        for iv in self.intervals():
+            arrived = [0] * n
+            for (array, _off, cnt) in iv.slots:
+                arrived[array] += cnt
+            for i in range(n):
+                e = arrived[i]
+                tau = iv.n_cycles
+                if e == 0:
+                    backlog[i] = max(0, backlog[i] - tau)
+                elif e > 1:
+                    backlog[i] += (e - 1) * tau
+                    depth[i] = max(depth[i], backlog[i])
+        return depth
+
+    def max_concurrent_elems(self) -> list[int]:
+        """Max elements of each array in any single cycle (write ports)."""
+        n = len(self.problem.arrays)
+        peak = [0] * n
+        for iv in self.intervals():
+            arrived = [0] * n
+            for (array, _off, cnt) in iv.slots:
+                arrived[array] += cnt
+            for i in range(n):
+                peak[i] = max(peak[i], arrived[i])
+        return peak
+
+    def render(self, max_cycles: int = 64) -> str:
+        """ASCII rendering in the style of the paper's Figs. 3-5."""
+        prob = self.problem
+        lines = []
+        shown = 0
+        for iv in self.intervals():
+            for c in range(iv.n_cycles):
+                if shown >= max_cycles:
+                    lines.append(f"  ... ({self.c_max - shown} more cycles)")
+                    return "\n".join(lines)
+                row = ["."] * prob.m
+                for (array, off, n), _base in zip(iv.slots, iv.elem_base):
+                    spec = prob.arrays[array]
+                    for k in range(n):
+                        lo = off + k * spec.width
+                        for b in range(spec.width):
+                            row[lo + b] = spec.name[0]
+                lines.append(f"{iv.start_cycle + c:4d} |{''.join(row)}|")
+                shown += 1
+        return "\n".join(lines)

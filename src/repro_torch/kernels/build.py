@@ -26,12 +26,14 @@ CSRC = pathlib.Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = pathlib.Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 
 #: every kernel source of the port, by library name
-KERNELS = ("stream_matmul", "stream_attention")
+KERNELS = ("stream_matmul", "stream_attention", "packed_matmul",
+           "layout_pack", "layout_decode")
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _LOADED: dict[str, ctypes.CDLL] = {}
+_FUNCTIONS: dict[tuple[str, str], ctypes._CFuncPtr] = {}
 
 
 def _nvcc() -> str:
@@ -109,6 +111,19 @@ def load(name: str) -> ctypes.CDLL:
         lib = ctypes.CDLL(str(path))
         _LOADED[name] = lib
     return lib
+
+
+def function(name: str, symbol: str, argtypes: list) -> ctypes._CFuncPtr:
+    """C launch function ``symbol`` of kernel ``name``'s library, with its
+    argument types set and an ``int`` (``cudaError_t``) result; memoized,
+    so a wrapper called thousands of times sets them once."""
+    fn = _FUNCTIONS.get((name, symbol))
+    if fn is None:
+        fn = getattr(load(name), symbol)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+        _FUNCTIONS[(name, symbol)] = fn
+    return fn
 
 
 def check_launch(name: str, rc: int) -> None:

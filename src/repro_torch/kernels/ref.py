@@ -1,9 +1,13 @@
 """Plain PyTorch versions of the port's kernels, and the word type.
 
-Own port of ``src/repro/kernels/ref.py:32-99``: the funnel-shift
-:func:`extract`, :func:`stream_matmul_ref` (keeping the reference's
-K-block accumulation order) and :func:`stream_kv_ref`.  They run on any
-device; the kernel wrappers call them only for CPU tensors, and
+Own port of ``src/repro/kernels/ref.py``: the funnel-shift
+:func:`extract`, :func:`stream_matmul_ref` and :func:`packed_matmul_ref`
+(both keeping the reference's K-block accumulation order),
+:func:`stream_kv_ref`, and the plain versions of the layout kernels:
+:func:`decode_fused_ref` (one ``(row, lane)`` slot-table entry at a
+time), :func:`decode_slot_ref` and :func:`pack_fused_ref` (gather, shift
+and OR over the K contributions of each word).  They run on any device;
+the kernel wrappers call them only for CPU tensors, and
 ``chip_smoke.py`` holds each CUDA kernel against them on the card.
 
 **Word type.**  PyTorch on the CPU has no shifts or comparisons for
@@ -71,16 +75,13 @@ def extract(words: torch.Tensor, tab: torch.Tensor, width: int
     return v.reshape(flat.shape[:-1] + tab.shape)
 
 
-def stream_matmul_ref(x: torch.Tensor, words: torch.Tensor,
-                      w_tab: torch.Tensor, s_tab: torch.Tensor, *,
-                      bits: int, group_size: int,
-                      block_k: int = 512) -> torch.Tensor:
-    """Plain version of ``stream_matmul``: table decode, dequantize, then
-    a dot accumulated over K blocks of ``block_k`` in order (the
-    reference kernel's K-grid order)."""
-    k, n = w_tab.shape
-    codes = extract(words, w_tab, bits)
-    scales = bf16_bits_to_f32(extract(words, s_tab, 16))
+def _dequant_dot(x: torch.Tensor, codes: torch.Tensor,
+                 scales: torch.Tensor, *, bits: int, group_size: int,
+                 block_k: int) -> torch.Tensor:
+    """``x @ ((codes - 2^(bits-1)) * scales)`` with (K, N) codes and
+    (K / group_size, N) f32 scales, accumulated over K blocks of
+    ``block_k`` in order (the reference kernels' K-grid order)."""
+    k, n = codes.shape
     wq = codes.to(torch.float32) - float(1 << (bits - 1))
     wf = (wq.reshape(k // group_size, group_size, n)
           * scales[:, None, :]).reshape(k, n)
@@ -91,6 +92,100 @@ def stream_matmul_ref(x: torch.Tensor, words: torch.Tensor,
     for kk in range(0, k, bk):
         acc = acc + xf[:, kk:kk + bk] @ wf[kk:kk + bk]
     return acc
+
+
+def stream_matmul_ref(x: torch.Tensor, words: torch.Tensor,
+                      w_tab: torch.Tensor, s_tab: torch.Tensor, *,
+                      bits: int, group_size: int,
+                      block_k: int = 512) -> torch.Tensor:
+    """Plain version of ``stream_matmul``: table decode, dequantize, then
+    a dot accumulated over K blocks of ``block_k`` in order."""
+    codes = extract(words, w_tab, bits)
+    scales = bf16_bits_to_f32(extract(words, s_tab, 16))
+    return _dequant_dot(x, codes, scales, bits=bits, group_size=group_size,
+                        block_k=block_k)
+
+
+def unpack_lanes(w_packed: torch.Tensor, bits: int) -> torch.Tensor:
+    """(..., K / lanes, N) int32-stored lane-packed u32 words -> (..., K, N)
+    int64 codes, lanes = 32 / bits (lane ``l`` of word ``r`` is code
+    ``r * lanes + l``, LSB first)."""
+    lanes = 32 // bits
+    w = w_packed.to(torch.int64) & U32
+    shifts = torch.arange(lanes, device=w.device).reshape(lanes, 1) * bits
+    codes = (w.unsqueeze(-2) >> shifts) & ((1 << bits) - 1)
+    *lead, kw, _, n = codes.shape
+    return codes.reshape(*lead, kw * lanes, n)
+
+
+def packed_matmul_ref(x: torch.Tensor, w_packed: torch.Tensor,
+                      scales: torch.Tensor, *, bits: int, group_size: int,
+                      block_k: int = 512) -> torch.Tensor:
+    """Plain version of ``packed_matmul``: unpack the lane-packed codes,
+    dequantize with the group scales, then the same K-blocked dot as
+    :func:`stream_matmul_ref` (so the two paths agree bit for bit)."""
+    return _dequant_dot(x, unpack_lanes(w_packed, bits),
+                        scales.to(torch.float32), bits=bits,
+                        group_size=group_size, block_k=block_k)
+
+
+def decode_fused_ref(words: torch.Tensor, tab: torch.Tensor) -> torch.Tensor:
+    """Plain version of the fused decode kernel.
+
+    ``words``: ``(R, W)`` int32-stored u32 bus rows; ``tab``: ``(R, L)``
+    slot table, ``bit_offset | width << 20`` per ``(row, lane)`` (0 = an
+    empty lane).  Each entry funnel-shifts its field out of two words of
+    its own row (the second clamped to the row's last word) and masks it
+    to ``width`` bits.  Returns the ``(R, L)`` int32-stored u32 grid.
+    """
+    x = words.to(torch.int64) & U32
+    t = tab.to(torch.int64) & U32
+    off = t & ((1 << 20) - 1)
+    width = t >> 20
+    w0 = off >> 5
+    sh = off & 31
+    lo = torch.gather(x, 1, w0)
+    hi = torch.gather(x, 1, torch.clamp(w0 + 1, max=x.shape[1] - 1))
+    v = (lo >> sh) | torch.where(sh > 0, hi << (32 - sh),
+                                 torch.zeros_like(hi))
+    return to_int32_bits(v & ((1 << width) - 1))
+
+
+def decode_slot_ref(rows: torch.Tensor, offsets: torch.Tensor,
+                    width: int) -> torch.Tensor:
+    """Plain version of ``decode_slot``: ``len(offsets)`` fields of
+    ``width`` bits at fixed bit offsets from each of the ``(n_rows, W)``
+    int32-stored u32 rows.  Returns ``(n_rows * lanes,)`` int32 codes in
+    stream order (row-major)."""
+    x = rows.to(torch.int64) & U32
+    off = offsets.to(device=x.device, dtype=torch.int64)
+    w0 = off >> 5
+    sh = off & 31
+    lo = x[:, w0] >> sh
+    hi = x[:, torch.clamp(w0 + 1, max=x.shape[1] - 1)] << (32 - sh)
+    v = torch.where((sh > 0) & (sh + width > 32), lo | hi, lo)
+    return to_int32_bits(v & ((1 << width) - 1)).reshape(-1)
+
+
+def pack_fused_ref(flat: torch.Tensor, src: torch.Tensor,
+                   scode: torch.Tensor) -> torch.Tensor:
+    """Plain version of the fused pack kernel.
+
+    ``flat``: ``(P + 1,)`` int32-stored u32 pieces with a 0 sentinel at
+    index 0; ``src`` / ``scode``: ``(K, n_words)`` int32, the k-th
+    contribution to each destination word (source index into ``flat``;
+    shift left by ``scode >= 0``, right by ``-scode``).  Returns the
+    ``(n_words,)`` int32-stored u32 words: the OR over the K shifted
+    pieces.
+    """
+    v = flat.to(torch.int64)[src.to(torch.int64)] & U32
+    c = scode.to(torch.int64)
+    parts = torch.where(c >= 0, v << c.clamp(min=0),
+                        v >> (-c).clamp(min=0)) & U32
+    out = torch.zeros(src.shape[1:], dtype=torch.int64, device=src.device)
+    for part in parts:
+        out |= part
+    return to_int32_bits(out)
 
 
 def dequant_fields(codes: torch.Tensor, sc16: torch.Tensor, bits: int

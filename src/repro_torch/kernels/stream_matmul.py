@@ -13,8 +13,9 @@ Bound on an H100 (3.35 TB/s HBM, 67 TFLOP/s f32): per decode step and
 layer of smollm-135m the 7 calls read 16.5 MB, mostly the u32 offset
 tables (4 B per weight), so with the tables coming from HBM the least
 time is ~4.9 µs.  Every layer shares the tables and they fit the 50 MB
-L2; with them resident ~1.9 MB remain, and the 2·M·K·N f32 FLOPs (M = 8)
-bound the 7 calls at ~0.85 µs.  ``chip_smoke.py`` prints both bounds.
+L2; with them resident ~1.9 MB remain, ~0.57 µs, which at the served
+M <= 4 outweigh the 2·M·K·N f32 FLOPs (at M = 8 the FLOPs would bound
+the 7 calls, at ~0.85 µs).  ``chip_smoke.py`` prints both bounds.
 """
 from __future__ import annotations
 
@@ -77,13 +78,11 @@ def stream_matmul(x: torch.Tensor, words: torch.Tensor, w_tab: torch.Tensor,
     out = torch.empty((m, n), dtype=torch.float32, device=x.device)
     if m == 0 or n == 0:
         return out
-    lib = build.load("stream_matmul")
-    fn = lib.stream_matmul_f32
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
-                   ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                   ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                   ctypes.c_int, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
+    fn = build.function("stream_matmul", "stream_matmul_f32",
+                        [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
+                         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+                         ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                         ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
     rc = fn(xf.data_ptr(), words.data_ptr(), words.numel(),
             w_tab.data_ptr(), s_tab.data_ptr(), out.data_ptr(), m, k, n,
             bits, group_size, torch.cuda.current_stream(x.device).cuda_stream)

@@ -101,12 +101,10 @@ def stream_attention(words: torch.Tensor, slot_ids: torch.Tensor,
     out = torch.empty_like(q)
     if b == 0:
         return out
-    lib = build.load("stream_attention")
-    fn = lib.stream_attention_bf16
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_longlong] \
-        + [ctypes.c_void_p] * 8 + [ctypes.c_int] * 6 \
-        + [ctypes.c_float, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
+    fn = build.function("stream_attention", "stream_attention_bf16",
+                        [ctypes.c_void_p, ctypes.c_longlong]
+                        + [ctypes.c_void_p] * 8 + [ctypes.c_int] * 6
+                        + [ctypes.c_float, ctypes.c_void_p])
     rc = fn(words.data_ptr(), words.shape[1], slot_ids.data_ptr(),
             q.data_ptr(), pos.data_ptr(), *[t.data_ptr() for t in tabs],
             out.data_ptr(), b, h, hkv, hd, smax, bits,

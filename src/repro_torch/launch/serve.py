@@ -7,8 +7,10 @@ Port of ``src/repro/launch/serve.py``, same flags plus ``--device``
 (default ``cuda``).  ``--packed`` is required: the port serves the packed
 path only (the dense model families come with a later slice).  Weights
 are seeded random (``--seed``), quantized to ``--bits`` and packed into
-per-layer Iris streams by :func:`repro_torch.tree.pack_tree`; every weight
-matmul reads the streams directly, and the KV cache is a packed Iris
+per-layer Iris streams by :func:`repro_torch.tree.pack_tree`.  As in the
+reference, lane-packable widths (2/4/8) serve through the lane-packed
+kernel views (``packed_matmul``) and every other width stream-direct
+(``stream_matmul`` reads the streams); the KV cache is a packed Iris
 stream read by the stream attention kernel.
 """
 from __future__ import annotations
@@ -92,8 +94,9 @@ def main(argv=None) -> dict:
           f"bf16={rep['bf16_MiB']:.2f} "
           f"({rep['bf16_MiB'] / rep['packed_MiB']:.2f}x reduction)")
     print(pt.summary())
-    print(f"serving path: stream-direct (int{args.bits}), packed int"
-          f"{args.bits} KV")
+    mode = "lane-packed (packed_matmul)" if pt.packed \
+        else f"stream-direct (int{args.bits})"
+    print(f"serving path: {mode}, packed int{args.bits} KV")
     adapter = PackedAdapter(cfg, pt, kv="packed", kv_bits=args.bits)
     engine = Engine(adapter, EngineConfig(
         batch_size=args.batch_size, max_seq=args.max_seq,

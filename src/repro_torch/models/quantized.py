@@ -1,10 +1,12 @@
 """Quantized decode path: serve from Iris-packed weight streams.
 
-Port of ``src/repro/models/quantized.py:39-44, 88-103, 106-293``:
-:func:`quantizable`, :func:`_pmm_direct`, :func:`packed_decode_step`
-(``weights``, ``slot_ids``, ``kv``, ``kv_attention``) and
-:func:`bytes_per_token_report`.  Every weight matmul gathers codes and
-scales straight out of the layer's packed stream (``stream_matmul``); with
+Port of ``src/repro/models/quantized.py:39-44, 73-293``:
+:func:`quantizable`, :func:`_pmm`, :func:`_pmm_direct`,
+:func:`packed_decode_step` (``weights``, ``slot_ids``, ``kv``,
+``kv_attention``) and :func:`bytes_per_token_report`.  A weight matmul
+reads the tree's lane-packed kernel views (``packed_matmul``), or gathers
+codes and scales straight out of the layer's packed stream
+(``stream_matmul``), routed as the reference routes them; with
 ``kv="packed"`` the KV cache is an Iris-planned packed stream too, read
 by ``stream_attention``.  The final ``logits = x @ embed.T`` is a plain
 product outside any kernel and stays ``torch.matmul``.
@@ -18,8 +20,8 @@ objects and a new ``pos``.
 from __future__ import annotations
 
 import torch
-import torch.nn.functional as F
 
+from ..kernels.packed_matmul import packed_matmul, packed_matmul_plain
 from .attention import decode_attention, stream_decode_attention
 from .layers import activation, apply_norm, apply_rope, rope_freqs
 
@@ -44,15 +46,20 @@ def init_decode_state(cfg, batch_size: int, max_seq: int, *,
     return state
 
 
+def _pmm(x2d: torch.Tensor, pw: torch.Tensor, sc: torch.Tensor, spec, *,
+         plain: bool = False) -> torch.Tensor:
+    """``x2d @ dequant(pw, sc)`` over one layer's lane-packed kernel view.
+    The kernel takes any M, and any K and N the function is defined for,
+    so unlike the reference no rows are padded and no Pallas block sizes
+    are chosen here."""
+    fn = packed_matmul_plain if plain else packed_matmul
+    return fn(x2d, pw, sc, bits=spec.bits, group_size=spec.group_size)
+
+
 def _pmm_direct(x2d: torch.Tensor, pp, name: str, layer: int, *,
                 plain: bool = False) -> torch.Tensor:
-    """Stream-direct ``x2d @ dequant(name)`` for layer ``layer``; pads M
-    to a power of two >= 8 as the reference does."""
-    b = x2d.shape[0]
-    bm = max(8, 1 << (b - 1).bit_length())
-    if bm != b:
-        x2d = F.pad(x2d, (0, 0, 0, bm - b))
-    return pp.matmul_direct(x2d, name, layer, plain=plain)[:b]
+    """Stream-direct ``x2d @ dequant(name)`` for layer ``layer``."""
+    return pp.matmul_direct(x2d, name, layer, plain=plain)
 
 
 def packed_decode_step(cfg, pp, state: dict, tokens: torch.Tensor, *,
@@ -60,10 +67,13 @@ def packed_decode_step(cfg, pp, state: dict, tokens: torch.Tensor, *,
                        kv: str = "dense", kv_attention: str = "stream",
                        plain: bool = False
                        ) -> tuple[torch.Tensor, dict]:
-    """One decode token with stream-direct weights (dense archs).
+    """One decode token with dequant-on-load weights (dense archs).
 
-    ``weights``: ``"auto"`` and ``"stream"`` gather straight from the
-    per-layer streams; ``"packed"`` (lane-packed views) is ROADMAP B2.
+    ``weights``: ``"packed"`` reads the lane-packed kernel views
+    (``packed_matmul``; bits in ``SUPPORTED_BITS`` only), ``"stream"``
+    gathers straight from the per-layer streams (``stream_matmul``, any
+    width), ``"auto"`` takes the views when the tree has them and the
+    streams otherwise.
     ``slot_ids``: the active cache rows aligned with ``tokens`` (ragged
     M); ``None`` steps every row.  ``kv``: ``"dense"`` bf16 caches or
     ``"packed"`` (``state["packed_kv"]``), read by the stream attention
@@ -80,10 +90,11 @@ def packed_decode_step(cfg, pp, state: dict, tokens: torch.Tensor, *,
     if kv_attention not in ("stream", "dense"):
         raise ValueError(
             f"kv_attention must be 'stream' or 'dense'; got {kv_attention!r}")
-    if weights == "packed":
-        raise NotImplementedError(
-            "lane-packed kernel views (packed_matmul) are ROADMAP item B2; "
-            "serve with weights='auto' or 'stream'")
+    use_stream = weights == "stream" or (weights == "auto" and not pp.packed)
+    if weights == "packed" and not pp.packed:
+        raise ValueError(
+            "tree has no lane-packed kernel views (built with "
+            "with_kernel_views=False); serve with weights='stream'")
     kvc = None
     if kv == "packed":
         kvc = state.get("packed_kv")
@@ -106,8 +117,11 @@ def packed_decode_step(cfg, pp, state: dict, tokens: torch.Tensor, *,
         * torch.tensor(cfg.d_model ** 0.5, dtype=embed.dtype, device=device)
 
     def mm(name, layer, x2d):
-        return _pmm_direct(x2d.to(torch.float32), pp, name, layer,
-                           plain=plain)
+        if use_stream:
+            return _pmm_direct(x2d.to(torch.float32), pp, name, layer,
+                               plain=plain)
+        return _pmm(x2d.to(torch.float32), pp.packed[name][layer],
+                    pp.scales[name][layer], pp.spec, plain=plain)
 
     for layer in range(cfg.n_layers):
         hnorm = apply_norm(cfg, {"scale": pp.other["norm1"]["scale"][layer]},
@@ -156,10 +170,18 @@ def bytes_per_token_report(cfg, pp) -> dict:
     """Weight bytes streamed per decode token: packed vs baselines."""
     n_elems = sum(k * n * cfg.n_layers for k, n in pp.shapes.values())
     other = pp.other_bytes()
+    if pp.packed:
+        # the serving view: lane-packed codes, scales and dense leaves
+        packed_b = other + sum(
+            v.numel() * 4 for v in pp.packed.values()) + sum(
+            v.numel() * v.element_size() for v in pp.scales.values())
+    else:
+        # stream-direct: the per-layer stream is the weight storage
+        packed_b = pp.stream_bytes + other
     pad_bits = 8 if pp.spec.bits > 4 else (4 if pp.spec.bits > 2 else 2)
     pad_bits = max(pad_bits, 1 << (pp.spec.bits - 1).bit_length())
     return {
-        "packed_MiB": (pp.stream_bytes + other) / 2**20,
+        "packed_MiB": packed_b / 2**20,
         "bf16_MiB": (n_elems * 2 + other) / 2**20,
         "padded_int_MiB": (n_elems * pad_bits / 8) / 2**20,
         "quantized_elems": n_elems,

@@ -1,7 +1,9 @@
 """Custom-precision integer weight quantization.
 
-Own copy of ``src/repro/quant/qtypes.py:26-96`` (:class:`QuantSpec`,
-:func:`quantize`, :func:`dequantize`) in PyTorch.  Symmetric, group-wise
+Own copy of ``src/repro/quant/qtypes.py:26-127`` (:class:`QuantSpec`,
+:func:`quantize`, :func:`dequantize`, and the lane-packed u32 storage
+:func:`pack_codes_u32` / :func:`unpack_codes_u32` that ``packed_matmul``
+reads) in PyTorch.  Symmetric, group-wise
 along K, biased unsigned codes (``q + 2^(bits-1)``) and bf16 scales.
 
 Codes and bf16 scale bit patterns are bit-identical to the reference:
@@ -18,6 +20,8 @@ import dataclasses
 
 import numpy as np
 import torch
+
+from .kernels.ref import to_int32_bits, unpack_lanes
 
 
 @dataclasses.dataclass(frozen=True)
@@ -87,3 +91,36 @@ def bits16(x: torch.Tensor) -> torch.Tensor:
     if x.dtype not in (torch.bfloat16, torch.float16):
         x = x.to(torch.bfloat16)
     return x.view(torch.int16).to(torch.int32) & 0xFFFF
+
+
+def from_bits16(pat: torch.Tensor, dtype: str) -> torch.Tensor:
+    """Inverse of :func:`bits16`: integer bit patterns in [0, 2^16) ->
+    the 16-bit float tensor ``dtype`` ("bfloat16" or "float16")."""
+    pat = pat.to(torch.int32)
+    signed = torch.where(pat >= 1 << 15, pat - (1 << 16), pat)
+    return signed.to(torch.int16).view(getattr(torch, dtype))
+
+
+def pack_codes_u32(codes: torch.Tensor, bits: int) -> torch.Tensor:
+    """``(..., K, N)`` codes -> ``(..., K / lanes, N)`` lane-packed u32
+    words (as int32 bits), lanes = 32 / bits.
+
+    Lane ``l`` of word ``r`` holds code ``codes[r * lanes + l]`` at bit
+    ``l * bits`` (LSB first), the Iris bus convention.  Needs
+    ``32 % bits == 0`` (bits in {2, 4, 8}).
+    """
+    if 32 % bits != 0:
+        raise ValueError(f"lane packing needs 32 % bits == 0, got {bits}")
+    lanes = 32 // bits
+    *lead, k, n = codes.shape
+    if k % lanes != 0:
+        raise ValueError(f"K={k} not divisible by lanes={lanes}")
+    c = codes.to(torch.int64).reshape(*lead, k // lanes, lanes, n)
+    shifts = torch.arange(lanes, device=c.device).reshape(lanes, 1) * bits
+    # the lanes' bits are disjoint, so the sum is their OR
+    return to_int32_bits((c << shifts).sum(dim=-2))
+
+
+def unpack_codes_u32(packed: torch.Tensor, bits: int) -> torch.Tensor:
+    """Inverse of :func:`pack_codes_u32` -> ``(..., K, N)`` uint8 codes."""
+    return unpack_lanes(packed, bits).to(torch.uint8)

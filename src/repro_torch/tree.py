@@ -1,46 +1,51 @@
 """``PackedTree``: a parameter tree in Iris-packed form, over PyTorch tensors.
 
-Port of ``src/repro/tree.py:100-420, 446-589``.  :func:`pack_tree`
+Port of ``src/repro/tree.py:100-420, 446-649``.  :func:`pack_tree`
 quantizes every large weight matrix of the uniform decoder stack, plans
 the per-layer Iris stream layout once through
 :func:`repro_torch.plan.plan_layer_stack` (N-1 cache hits for the rest of
-the stack), packs one unified stream per layer with the host pack
-(:func:`~repro_torch.core.exec_plan.pack_compiled`) and returns a
-:class:`PackedTree`.  :class:`LayoutManifest` has the reference's JSON.
+the stack), packs one unified stream per layer with the fused pack kernel
+on the tree's device (:func:`~repro_torch.kernels.layout_pack.pack_pieces`;
+its plain version on the CPU) and returns a :class:`PackedTree`.
+:func:`unpack_streams` is the inverse: it rebinds the layout without
+scheduling and rebuilds scales and kernel views from the stream bytes,
+decoded by the fused decode kernel on the tree's device.
+:class:`LayoutManifest` has the reference's JSON.
 
-The port serves **stream-direct** at every width: the matmuls gather
-codes and scales straight out of each layer's stream
-(:mod:`repro_torch.kernels.stream_matmul`).  The reference proves this
-path bit-identical to its lane-packed ``packed_matmul`` views
-(``src/repro/kernels/stream_matmul.py:20-26``); those views and their
-kernel are ROADMAP item B2, so ``with_kernel_views=True`` raises.
+Two weight paths serve a tree, as in the reference.  Lane-packable
+widths (``bits`` in ``SUPPORTED_BITS`` = 2, 4, 8) get lane-packed kernel
+views (``PackedTree.packed``) that ``packed_matmul`` reads; every width
+serves **stream-direct**, the matmuls gathering codes and scales straight
+out of each layer's stream (``stream_matmul``).  On one tree the two
+give the same bits.
 """
 from __future__ import annotations
 
 import dataclasses
 import json
 
-import numpy as np
 import torch
+import torch.nn.functional as F
 
 from .core.exec_plan import (
     ExecProgram,
     StreamTables,
     lower_exec,
-    pack_compiled,
     stream_matmul_tables,
 )
 from .core.iris import DEFAULT_CACHE, LayoutCache
 from .core.layout import Layout
 from .core.task import LayoutProblem
-from .core.util import pad_bundle_elements
 from .device import resolve_device
-from .kernels.ref import table_tensor, words_tensor
+from .kernels.layout_decode import decode_layout_fused
+from .kernels.layout_pack import pack_pieces
+from .kernels.packed_matmul import SUPPORTED_BITS
+from .kernels.ref import table_tensor
 from .kernels.stream_matmul import stream_matmul, stream_matmul_plain
 from .plan import BundleTensor, bundle_problem, plan_layer_stack
-from .quant import QuantSpec, bits16, quantize
+from .quant import QuantSpec, bits16, from_bits16, pack_codes_u32, quantize
 
-__all__ = ["LayoutManifest", "PackedTree", "pack_tree"]
+__all__ = ["LayoutManifest", "PackedTree", "pack_tree", "unpack_streams"]
 
 #: weight names quantized in a dense decoder sublayer (bundle order)
 _QUANT_NAMES = ("wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down")
@@ -150,16 +155,19 @@ class PackedTree:
     """Iris-packed parameters: per-layer stream buffers plus what stays
     dense.
 
-    ``streams``: ``(n_layers, c_max, m/8)`` uint8, the unified stream per
-    layer (codes + scale bit patterns + norm slots, interleaved by the
-    scheduler); ``scales``: per quantized key the ``(n_layers, K/g, N)``
-    bf16 group scales; ``other``: embedding and norms.  The reference's
-    lane-packed kernel views (``packed``) come with ROADMAP item B2.
+    ``packed``: per quantized key the ``(n_layers, K*bits/32, N)``
+    lane-packed u32 kernel views (int32 bits) read by ``packed_matmul``,
+    or empty for widths that do not lane-pack; ``streams``:
+    ``(n_layers, c_max, m/8)`` uint8, the unified stream per layer (codes
+    + scale bit patterns + norm slots, interleaved by the scheduler);
+    ``scales``: per quantized key the ``(n_layers, K/g, N)`` bf16 group
+    scales; ``other``: embedding and norms.
     """
 
-    def __init__(self, scales: dict, other: dict, streams: torch.Tensor,
-                 manifest: LayoutManifest, *,
+    def __init__(self, packed: dict, scales: dict, other: dict,
+                 streams: torch.Tensor, manifest: LayoutManifest, *,
                  provenance: str = "scheduled") -> None:
+        self.packed = packed
         self.scales = scales
         self.other = other
         self.streams = streams
@@ -195,8 +203,10 @@ class PackedTree:
         return size(self.other)
 
     def hbm_bytes(self) -> int:
-        """Serving footprint: stream buffers + dense leaves."""
-        return self.stream_bytes + self.other_bytes()
+        """Serving footprint: stream buffers, kernel views and dense
+        leaves."""
+        views = sum(v.numel() * 4 for v in self.packed.values())
+        return self.stream_bytes + views + self.other_bytes()
 
     @property
     def stream_bytes(self) -> int:
@@ -252,13 +262,13 @@ class PackedTree:
 
     def stream_words(self) -> torch.Tensor:
         """Every layer's stream as flat u32 words: ``(n_layers, W)`` int32
-        on the tree's device (built once from the host bytes)."""
+        on the tree's device (built once, each row padded to whole
+        words)."""
         if self._words is None:
             prog = self.exec_program()
-            host = self.streams.cpu().numpy()
-            words = np.stack([prog.buffer_words32(host[la]).reshape(-1)
-                              for la in range(self.n_layers)])
-            self._words = words_tensor(words, self.device)
+            pad = prog.words32 * 4 - prog.row_bytes
+            self._words = F.pad(self.streams, (0, pad)).contiguous() \
+                .view(torch.int32).reshape(self.n_layers, -1)
         return self._words
 
     def layer_stream_words(self, layer: int) -> torch.Tensor:
@@ -295,24 +305,19 @@ class PackedTree:
         return f"<{self.summary()}>"
 
 
-def _layer_element_data(bundle, codes, scales16, norms16, layer: int,
-                        ) -> dict[str, np.ndarray]:
-    """Element streams for one layer, keyed by bundle tensor name."""
-    data: dict[str, np.ndarray] = {}
+def _layer_pieces(bundle, codes, scales16, norms16, layer: int
+                  ) -> list[torch.Tensor]:
+    """One layer's element streams in bundle order (codes, scale and norm
+    bit patterns), on their device."""
+    out = []
     for b in bundle:
         if b.name in _BUNDLE_NORMS:
-            data[b.name] = norms16[b.name][layer]
+            out.append(norms16[b.name][layer])
         elif b.name.endswith("_scales"):
-            data[b.name] = scales16[b.name[:-len("_scales")]][layer]
+            out.append(scales16[b.name[:-len("_scales")]][layer])
         else:
-            data[b.name] = codes[_BUNDLE_TO_PARAM[b.name]][layer] \
-                .reshape(-1).astype(np.uint64)
-    return data
-
-
-def _host_bits16(x: torch.Tensor) -> np.ndarray:
-    """(L, ...) 16-bit float tensor -> (L, n) host uint64 bit patterns."""
-    return bits16(x).reshape(x.shape[0], -1).cpu().numpy().astype(np.uint64)
+            out.append(codes[_BUNDLE_TO_PARAM[b.name]][layer])
+    return out
 
 
 def pack_tree(cfg, params: dict, spec: QuantSpec, *, m: int = 4096,
@@ -321,15 +326,23 @@ def pack_tree(cfg, params: dict, spec: QuantSpec, *, m: int = 4096,
               device=None) -> PackedTree:
     """Quantize + plan + pack a dense decoder's parameters in one call.
 
-    Quantization runs on ``device`` (``"cuda"`` unless given); the
-    streams are packed on the host and placed on ``device``.
+    Quantization and the pack run on ``device`` (``"cuda"`` unless
+    given), one pack-kernel launch per layer; the bytes are those of the
+    host pack :func:`~repro_torch.core.exec_plan.pack_compiled`.
+    ``with_kernel_views=None`` builds the lane-packed views exactly when
+    the width lane-packs (``bits`` in ``SUPPORTED_BITS``); ``True`` for
+    another width raises.
     """
     from .models.quantized import quantizable
 
-    if with_kernel_views:
-        raise NotImplementedError(
-            "lane-packed kernel views feed packed_matmul, which the port "
-            "does not have yet (ROADMAP item B2); serve stream-direct")
+    lane_packable = spec.bits in SUPPORTED_BITS
+    if with_kernel_views is None:
+        with_kernel_views = lane_packable
+    if with_kernel_views and not lane_packable:
+        raise ValueError(
+            f"lane-packed kernel views need bits in "
+            f"{sorted(SUPPORTED_BITS)}; got {spec.bits}: serve it "
+            "stream-direct (with_kernel_views=False)")
     if not quantizable(cfg):
         raise NotImplementedError(
             f"pack_tree covers dense-family archs; {cfg.name} is not")
@@ -342,7 +355,8 @@ def pack_tree(cfg, params: dict, spec: QuantSpec, *, m: int = 4096,
             f"{spec.scale_dtype!r} is not 16-bit")
     device = resolve_device(device)
     blocks = params["blocks"][0]
-    codes: dict[str, np.ndarray] = {}     # param key -> (L, K, N) uint8
+    codes: dict[str, torch.Tensor] = {}   # param key -> (L, K*N) codes
+    packed: dict[str, torch.Tensor] = {}
     scales: dict[str, torch.Tensor] = {}
     shapes: dict[str, tuple[int, int]] = {}
     other = {
@@ -360,9 +374,11 @@ def pack_tree(cfg, params: dict, spec: QuantSpec, *, m: int = 4096,
                 raise NotImplementedError(f"unexpected {sub}/{name}")
             k = f"{sub}/{name}"
             qt = quantize(w.to(device), spec)
+            if with_kernel_views:
+                packed[k] = pack_codes_u32(qt.codes, spec.bits)
             scales[k] = qt.scales
             shapes[k] = (int(w.shape[1]), int(w.shape[2]))
-            codes[k] = qt.codes.cpu().numpy()
+            codes[k] = qt.codes.reshape(qt.codes.shape[0], -1)
 
     stack = plan_layer_stack(cfg, spec, m=m, cache=cache)
     lay = stack.layout
@@ -380,20 +396,68 @@ def pack_tree(cfg, params: dict, spec: QuantSpec, *, m: int = 4096,
     )
 
     prog = stack.exec_program()
-    scales16 = {k.split("/", 1)[1]: _host_bits16(v)
-                for k, v in scales.items()}
-    norms16 = {name: _host_bits16(other[key]["scale"])
-               for name, key in _BUNDLE_NORMS.items()}
-    rows = []
-    for layer in range(stack.n_layers):
-        data = _layer_element_data(stack.bundle, codes, scales16, norms16,
-                                   layer)
-        rows.append(pack_compiled(lay, pad_bundle_elements(
-            stack.problem, prog, data), program=prog))
-    streams = torch.from_numpy(np.stack(rows)).to(device)
 
-    pt = PackedTree(scales=scales, other=other, streams=streams,
-                    manifest=manifest, provenance=stack.provenance)
+    def bits16_rows(x: torch.Tensor) -> torch.Tensor:
+        return bits16(x).reshape(x.shape[0], -1)
+
+    scales16 = {k.split("/", 1)[1]: bits16_rows(v) for k, v in scales.items()}
+    norms16 = {name: bits16_rows(other[key]["scale"])
+               for name, key in _BUNDLE_NORMS.items()}
+    streams = torch.stack([
+        pack_pieces(prog, _layer_pieces(stack.bundle, codes, scales16,
+                                        norms16, layer))
+        for layer in range(stack.n_layers)])
+
+    pt = PackedTree(packed=packed, scales=scales, other=other,
+                    streams=streams, manifest=manifest,
+                    provenance=stack.provenance)
+    pt._layout = lay
+    pt._program = prog
+    return pt
+
+
+def unpack_streams(manifest: LayoutManifest, streams, other: dict, *,
+                   cache: LayoutCache | None = DEFAULT_CACHE,
+                   device=None) -> PackedTree:
+    """Rebuild a :class:`PackedTree` from its stream buffers.
+
+    The layout is rebound from ``cache`` or rebuilt from the manifest's
+    count runs (the scheduler never runs).  Each layer stream is decoded
+    by the fused decode kernel on ``device`` (``"cuda"`` unless given;
+    one launch per layer), and the scales and, for lane-packable widths,
+    the kernel views are rebuilt there from the decoded pieces, bit for
+    bit.  ``streams`` is the ``(n_layers, c_max, m/8)`` uint8 array
+    (numpy or tensor).
+    """
+    device = resolve_device(device)
+    lay, provenance = manifest.resolve_layout(cache)
+    prog = lower_exec(lay, elem_widths=manifest.elem_widths())
+    streams = torch.as_tensor(streams, dtype=torch.uint8).to(device)
+    n_layers = manifest.n_layers
+    if streams.shape[0] != n_layers:
+        raise ValueError(
+            f"streams has {streams.shape[0]} layers, manifest says "
+            f"{n_layers}")
+    spec = manifest.spec
+    g = spec.group_size
+    per_layer = [decode_layout_fused(lay, streams[la], program=prog)
+                 for la in range(n_layers)]
+    packed: dict[str, torch.Tensor] = {}
+    scales: dict[str, torch.Tensor] = {}
+    for key, (kk, nn) in manifest.shapes:
+        bname = key.split("/", 1)[1]
+        pat = torch.stack([per_layer[la][f"{bname}_scales"][:(kk // g) * nn]
+                           for la in range(n_layers)])
+        scales[key] = from_bits16(pat, spec.scale_dtype).reshape(
+            n_layers, kk // g, nn)
+        if spec.bits in SUPPORTED_BITS:
+            layer_codes = torch.stack([per_layer[la][bname][:kk * nn]
+                                       for la in range(n_layers)])
+            packed[key] = pack_codes_u32(
+                layer_codes.reshape(n_layers, kk, nn), spec.bits)
+    pt = PackedTree(packed=packed, scales=scales, other=other,
+                    streams=streams.clone(), manifest=manifest,
+                    provenance=provenance)
     pt._layout = lay
     pt._program = prog
     return pt

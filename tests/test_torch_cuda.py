@@ -102,3 +102,95 @@ def test_stream_attention_kernel_matches_plain(cuda, bits, heads, hd, smax):
     want = sa.stream_attention_plain(*args, bits=bits)
     torch.cuda.synchronize()
     assert (got.float() - want.float()).abs().max().item() <= ATT_ATOL
+
+
+@pytest.mark.parametrize("bits,m,k,n", [(4, 8, 576, 576), (4, 8, 1536, 576),
+                                        (2, 3, 128, 33), (8, 9, 96, 200)])
+def test_packed_matmul_kernel_matches_plain(cuda, bits, m, k, n):
+    """Within the stream_matmul tolerance of the plain version, and bit
+    for bit equal to stream_matmul over the same codes in an Iris stream
+    (both kernels sum in one order)."""
+    from repro_torch.kernels import packed_matmul as pm
+    from repro_torch.kernels import stream_matmul as sm
+    from repro_torch.quant import QuantSpec, pack_codes_u32, quantize
+
+    rng = np.random.default_rng(k + n)
+    w = torch.from_numpy(rng.standard_normal((k, n), np.float32))
+    qt = quantize(w, QuantSpec(bits=bits, group_size=32))
+    pw = pack_codes_u32(qt.codes, bits).to(cuda)
+    sc = qt.scales.to(cuda)
+    x = torch.from_numpy(rng.standard_normal((m, k), np.float32)).to(cuda)
+    before = pm.launches
+    got = pm.packed_matmul(x, pw, sc, bits=bits, group_size=32)
+    want = pm.packed_matmul_plain(x, pw, sc, bits=bits, group_size=32)
+    torch.cuda.synchronize()
+    assert pm.launches == before + 1
+    torch.testing.assert_close(got, want, rtol=MM_RTOL, atol=MM_ATOL)
+    words, w_tab, s_tab = _stream_case(bits, k, n, 32, cuda, seed=k + n)
+    assert torch.equal(
+        got, sm.stream_matmul(x, words, w_tab, s_tab, bits=bits,
+                              group_size=32))
+
+
+def _layout_case(specs, m, seed=0):
+    from repro_torch import api
+    from repro_torch.core.task import make_problem
+
+    pl = api.plan(make_problem(m, specs), cache=None)
+    return pl, api.random_codes(pl.problem, seed=seed)
+
+
+#: word-straddling widths; arrays wider than 32 bits (two u32 fields
+#: each); an element-granularity problem at a full bus
+LAYOUT_CASES = {
+    "straddle": ([("a", 3, 300, 4), ("b", 7, 150, 9), ("c", 11, 90, 2),
+                  ("d", 30, 41, 7)], 96),
+    "wide": ([("w64", 64, 24, 3), ("n5", 5, 70, 3), ("w40", 40, 31, 6)],
+             192),
+    "elements": ([("w", 3, 4096 * 9, 0), ("w_scales", 16, 4096 * 9 // 32, 0),
+                  ("v", 4, 3000, 0)], 4096),
+}
+
+
+@pytest.mark.parametrize("specs,m", LAYOUT_CASES.values(),
+                         ids=LAYOUT_CASES.keys())
+def test_layout_kernels_match_plain(cuda, specs, m):
+    """Fused pack, fused decode grid and per-slot decode: bit-equal to
+    their plain versions on the card, every array on the kernels, and the
+    round trip is exact."""
+    from repro_torch.kernels import layout_decode as ld
+    from repro_torch.kernels import layout_pack as lp
+    from repro_torch.kernels.ops import buffer_to_u32
+    from repro_torch.kernels.ref import words_tensor
+
+    pl, codes = _layout_case(specs, m)
+    for a in pl.problem.arrays:
+        if a.width == 64:       # the top bit too (random codes leave it 0)
+            codes[a.name][::3] |= np.uint64(1 << 63)
+    prog = pl.exec_program
+    before = (lp.launches, ld.fused_launches)
+    buf = pl.pack(codes, backend="cuda")
+    assert np.array_equal(buf, pl.pack(codes))
+    streams = [torch.from_numpy(codes[a.name].view(np.int64))
+               for a in pl.problem.arrays]
+    assert torch.equal(
+        lp.pack_pieces(prog, [t.to(cuda) for t in streams]).cpu(),
+        lp.pack_pieces(prog, streams))
+    words = words_tensor(prog.buffer_words32(buf), cuda)
+    tab, _ = ld.device_decode_tables(prog, cuda)
+    assert torch.equal(ld.decode_grid(words, tab),
+                       ld.decode_grid_plain(words, tab))
+    rows = buffer_to_u32(torch.from_numpy(buf).to(cuda))
+    for slot in [s for s in pl.decode_plan.slots if s.width <= 32][:50]:
+        offs = torch.tensor([slot.bit_offset + j * slot.width
+                             for j in range(slot.lanes)],
+                            dtype=torch.int32, device=cuda)
+        slab = rows[slot.start_cycle:slot.start_cycle + slot.n_cycles]
+        assert torch.equal(ld.decode_slot(slab, offs, slot.width),
+                           ld.decode_slot_plain(slab, offs, slot.width))
+    torch.cuda.synchronize()
+    for kw in ({"fused": True}, {"fused": False}):
+        out = pl.decode(buf, backend="cuda", **kw)
+        assert all(np.array_equal(out[k], codes[k]) for k in codes), kw
+    assert (lp.launches, ld.fused_launches) == (before[0] + 2,
+                                                before[1] + 2)

@@ -2,9 +2,11 @@
 
 Reduced smollm-135m (2 layers, d_model 128).  The reference's
 ``Model.init`` weights are handed over with ``params_from_jax``; both
-packages quantize, plan and pack them (streams held byte-identical), and
-both run ``packed_decode_step`` — the reference through its Pallas
-kernels in interpret mode, the port through its kernels' plain versions.
+packages quantize, plan and pack them (streams and int4 kernel views held
+byte-identical), and both run ``packed_decode_step`` — the reference
+through its Pallas kernels in interpret mode, the port through its
+kernels' plain versions; int3 serves stream-direct (``stream_matmul``) in
+both, int4 through the lane-packed views (``packed_matmul``) in both.
 Logits are bf16 and computed in another order of f32 sums, so they are
 held within ``LOGIT_ATOL`` of the reference; greedy tokens must be equal.
 """
@@ -97,9 +99,13 @@ def test_pack_tree_matches_reference(trees, bits):
     for key, s in rt.scales.items():
         assert np.array_equal(pt.scales[key].view(torch.int16).numpy(),
                               np.asarray(s).view(np.int16)), key
-    with pytest.raises(NotImplementedError, match="B2"):
-        pack_tree(port_configs.SMOLLM_135M.reduced(), {}, QuantSpec(bits=4),
-                  with_kernel_views=True, device="cpu")
+    # lane-packed kernel views exactly for the lane-packable widths, bit
+    # for bit the reference's (int4 then serves through packed_matmul)
+    assert sorted(pt.packed) == sorted(rt.packed)
+    assert bool(pt.packed) == (bits == 4)
+    for key, v in rt.packed.items():
+        assert np.array_equal(pt.packed[key].numpy().view(np.uint32),
+                              np.asarray(v)), key
 
 
 def _ref_state(cfg, kv, bits, b):
@@ -222,6 +228,15 @@ def test_bytes_per_token_report_matches_reference(models, trees):
 
     rcfg, pcfg, _, _ = models
     rt, pt = trees[3]              # int3: the reference has no kernel views
+    assert bytes_per_token_report(pcfg, pt) == ref_report(rcfg, rt)
+
+
+def test_bytes_per_token_report_int4_views_match_reference(models, trees):
+    from repro.models.quantized import bytes_per_token_report as ref_report
+    from repro_torch.models.quantized import bytes_per_token_report
+
+    rcfg, pcfg, _, _ = models
+    rt, pt = trees[4]              # int4: both trees have kernel views
     assert bytes_per_token_report(pcfg, pt) == ref_report(rcfg, rt)
 
 
