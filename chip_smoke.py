@@ -46,8 +46,23 @@
    and read just after: int4 serving launches ``packed_matmul`` 7 x 30
    times per step and ``stream_matmul`` never; int3 the reverse.  Then a
    ``torch.profiler`` window over 4 steady int3 engine steps.
-9. Prints one JSON ``kernels`` line, the card line again, and last
-   ``{"ok": true, "device": {...}}``.
+9. Frees the smollm trees, then jamba-1.5-large-398b at its full widths,
+   cut to one period (``n_layers`` 72 -> 8: 7 Mamba sublayers and 1 GQA
+   attention sublayer) and ``moe=None`` (every sublayer takes the dense
+   MLP of d_ff 24576; the MoE sublayers would not fit one card beside the
+   rest): 10.77 B seeded random bf16 parameters, 21.5 GB.
+   ``ssd_scan`` against its plain version on the layer-0 Mamba inputs of
+   the real prefill (bf16, B=2, T=1024, H=256, dk=dv=64) and on a ragged
+   f32 case (T=1000, ``state0``, final state); ``build_prefill_step`` at
+   B=2, T=1024 (7 ``ssd_scan`` launches, counted); teacher-forced decode
+   of 2 prompts of 16 tokens through ``build_serve_step`` against the
+   prefill's logits, in bf16 (stated tolerance) and, with the same
+   weights widened to f32, at the reference's 1e-3 with greedy argmax
+   equal at every position; ``Engine(DenseAdapter)`` with 8 requests,
+   batch 4, max_seq 256, 8 new tokens each, against the decode step's
+   bytes bound.  Peak device memory is printed for each jamba phase.
+10. Prints one JSON ``kernels`` line (seven kernels), the card line
+    again, and last ``{"ok": true, "device": {...}}``.
 
 Any failed check raises, and the script exits non-zero without the last
 line.  Without a CUDA device it exits 2; run alone, outside the
@@ -87,6 +102,22 @@ SERVE_M = 4
 #: the front door's layer problem plans to this C_max (by d_model; the
 #: reference planner gives the same), B_eff 0.9997 at full width
 FRONT_DOOR_C_MAX = {576: 3025}
+#: ssd_scan kernel vs plain: f32 inputs, f32 sums in another order (the
+#: reference's own chunked-vs-recurrent bound); bf16 output, one bf16 ulp
+#: of the element plus a floor for elements near 0
+SCAN_F32_TOL = dict(rtol=2e-4, atol=2e-4)
+SCAN_BF16_TOL = dict(rtol=2.0 ** -7, atol=1e-3)
+#: jamba decode vs prefill logits.  bf16: |logit| <= ~5 in bf16 (one ulp
+#: is 2^-5 at 4); eight sublayers of bf16 rounding move the two paths
+#: apart by 0.227-0.291 at the reduced width and 0.242 / 0.203 at d_model
+#: 1024 / 2048 in CPU rehearsals (the reference's own two paths: 0.219 at
+#: the reduced width), so 0.5; top-2 margins below one ulp are common
+#: among 65536 bf16 logits, so greedy agreement is required in f32.  f32
+#: (the same weights widened): the reference's own bound, 1e-3.
+DECODE_BF16_ATOL = 0.5
+DECODE_F32_TOL = dict(rtol=1e-3, atol=1e-3)
+#: jamba prefill shape (the ssd_scan kernel line is timed here)
+PREFILL_B, PREFILL_T = 2, 1024
 
 
 def card_line() -> str:
@@ -887,23 +918,15 @@ def check_decode_slot(pl, buf, dev) -> dict:
             "bound_by": by, "library_ms": None}
 
 
-def profile_steps(cfg, tree, prompts, n_steps: int = 4) -> None:
-    """``torch.profiler`` over a few steady engine steps
-    (batch 4, packed KV): time by operator, and the device's busy share
-    of the window's wall time."""
+def profile_steps(engine, prompts, label: str, n_steps: int = 4) -> None:
+    """``torch.profiler`` over a few steady steps of ``engine`` (4 of
+    ``prompts``, 64 new tokens each): time by operator, and the device's
+    busy share of the window's wall time."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    from repro_torch.engine import (
-        Engine,
-        EngineConfig,
-        EngineRequest,
-        PackedAdapter,
-    )
+    from repro_torch.engine import EngineRequest
 
-    engine = Engine(PackedAdapter(cfg, tree, kv="packed", kv_bits=3),
-                    EngineConfig(batch_size=4, max_seq=256,
-                                 max_backlog=None))
     for uid, prompt in enumerate(prompts[:4]):
         engine.submit(EngineRequest(uid=uid, prompt=prompt,
                                     max_new_tokens=64))
@@ -927,13 +950,301 @@ def profile_steps(cfg, tree, prompts, n_steps: int = 4) -> None:
            if e.device_type == torch.autograd.DeviceType.CUDA]
     dev_us = sum(getattr(e, key) for e in dev)
     launches = sum(e.count for e in events if e.key == "cudaLaunchKernel")
-    print(f"profile: {n_steps} steps in {wall * 1e3:.2f} ms wall "
+    print(f"profile ({label}): {n_steps} steps in {wall * 1e3:.2f} ms wall "
           f"(profiler on); device busy {dev_us / 1e3:.2f} ms "
           f"({dev_us / 1e4 / wall:.1f}% of wall); "
           f"{launches / n_steps:.0f} kernel launches per step")
     print(events.table(sort_by="self_cpu_time_total", row_limit=18,
                        max_name_column_width=48))
     print(events.table(sort_by=key, row_limit=12, max_name_column_width=48))
+
+
+def jamba_config():
+    """jamba-1.5-large-398b at its full widths, cut to fit one card:
+    returns (config, the cuts as text)."""
+    import dataclasses
+
+    from repro_torch.configs import JAMBA_1_5_LARGE
+
+    cfg = dataclasses.replace(JAMBA_1_5_LARGE, n_layers=8, moe=None)
+    cuts = ("n_layers 72 -> 8 (one period: 7 Mamba + 1 GQA attention "
+            "sublayer); moe -> None (every sublayer takes the dense MLP of "
+            f"d_ff {cfg.d_ff}; 16 experts x 3 x 8192 x 24576 bf16 = 19.3 GB "
+            "per MoE sublayer would not fit one card beside the rest)")
+    return cfg, cuts
+
+
+def param_leaves(tree):
+    """(container, key, tensor) for every leaf of a parameter tree."""
+    stack = [tree]
+    while stack:
+        node = stack.pop()
+        for key, val in list(node.items() if isinstance(node, dict)
+                             else enumerate(node)):
+            if isinstance(val, (dict, list)):
+                stack.append(val)
+            else:
+                yield node, key, val
+
+
+def mem_gb() -> float:
+    import torch
+
+    return torch.cuda.max_memory_allocated() / 1e9
+
+
+def scan_bound(q, v, out) -> tuple[float, str, float]:
+    """Least time of one ssd_scan call: q/k/v/logw read once and the output
+    written once, against its f32 FLOPs with the masked triangle skipped
+    (2 C(C+1)/2 (dk + dv) for the scores and their product with v, 2 C dk
+    dv each for the carried state's read and update, per chunk) on CUDA
+    cores; the TF32 tensor-core figure is returned beside it."""
+    b, t, h, dk = q.shape
+    dv = v.shape[-1]
+    c = 128
+    n_chunks = -(-t // c)
+    nbytes = (2 * q.numel() * q.element_size() + v.numel() * v.element_size()
+              + b * t * h * 4 + out.numel() * out.element_size())
+    flops = b * h * n_chunks * (c * (c + 1) * (dk + dv) + 4 * c * dk * dv)
+    bms, by = bound_ms(nbytes, flops)
+    tf32 = max(nbytes / HBM_BYTES_PER_S, flops / 495e12) * 1e3
+    return bms, by, tf32
+
+
+def check_ssd_scan(cfg, params, toks, rng, dev) -> dict:
+    """The kernel against its plain version on the layer-0 Mamba inputs of
+    the real prefill (bf16, timed) and on a ragged f32 case (T=1000 of
+    the same inputs, widened, with a random state0 and the final state)."""
+    import torch
+
+    from repro_torch.kernels import linear_scan as ls
+    from repro_torch.models.layers import apply_norm
+    from repro_torch.models.mamba import _ssm_inputs
+    from repro_torch.models.model import Model
+    from repro_torch.models.transformer import period_params
+
+    p0 = period_params(params["blocks"][0], 0)
+    h = apply_norm(cfg, p0["norm1"], Model(cfg)._embed(params, toks))
+    _, _, bk, cq, v, log_a = _ssm_inputs(cfg, p0["mamba"], h)
+    got = ls.ssd_scan(cq, bk, v, log_a)
+    want = ls.ssd_scan_plain(cq, bk, v, log_a)
+    torch.cuda.synchronize()
+    err = float((got.float() - want.float()).abs().max())
+    if got.dtype != cq.dtype or not torch.isfinite(got).all() or \
+            not torch.allclose(got.float(), want.float(), **SCAN_BF16_TOL):
+        raise AssertionError(f"ssd_scan bf16 prefill inputs: max |err| "
+                             f"{err:.3g}")
+    t_r = 1000
+    args32 = [a[:, :t_r].float() for a in (cq, bk, v)] + [log_a[:, :t_r]]
+    s0 = torch.from_numpy(rng.standard_normal(
+        (cq.shape[0], cq.shape[2], cq.shape[3], v.shape[3]),
+        np.float32)).to(dev)
+    g32, gs = ls.ssd_scan(*args32, state0=s0, return_state=True)
+    w32, ws = ls.ssd_scan_plain(*args32, state0=s0, return_state=True)
+    torch.cuda.synchronize()
+    err32 = max(float((g32 - w32).abs().max()), float((gs - ws).abs().max()))
+    if not (torch.allclose(g32, w32, **SCAN_F32_TOL)
+            and torch.allclose(gs, ws, **SCAN_F32_TOL)):
+        raise AssertionError(f"ssd_scan ragged f32: max |err| {err32:.3g}")
+    ms = time_ms(lambda: ls.ssd_scan(cq, bk, v, log_a), iters=20)
+    pms = time_ms(lambda: ls.ssd_scan_plain(cq, bk, v, log_a), iters=5)
+    bms, by, tf32 = scan_bound(cq, v, got)
+    b, t, hh, dk = cq.shape
+    print(f"ssd_scan bf16 B={b} T={t} H={hh} dk={dk} dv={v.shape[-1]} "
+          f"chunk=128 (layer-0 Mamba inputs of the prefill, {b * hh} "
+          f"blocks): kernel {ms:.4f} ms  plain {pms:.4f} ms  library none  "
+          f"bound {bms:.4f} ms ({by}; TF32 tensor-core figure {tf32:.4f} ms)"
+          f"  max|err| {err:.3g} (largest |output| "
+          f"{float(want.float().abs().max()):.4g}); ragged f32 T={t_r} with "
+          f"state0: max|err| (output, final state) {err32:.3g} (largest "
+          f"|final state| {float(ws.abs().max()):.4g})")
+    return {"max_abs_err": max(err, err32), "ms": ms, "plain_ms": pms,
+            "bound_ms": bms, "bound_by": by, "library_ms": None}
+
+
+def prefill_jamba(cfg, params, toks) -> int:
+    """The main path's prefill: ``build_prefill_step`` at (B, T), with the
+    ``ssd_scan`` launches counted.  Returns them."""
+    import torch
+
+    from repro_torch.kernels import linear_scan as ls
+    from repro_torch.launch.steps import build_prefill_step
+    from repro_torch.models.transformer import n_periods, period_template
+
+    step = build_prefill_step(cfg)
+    torch.cuda.synchronize()
+    ls.launches = 0
+    t0 = time.perf_counter()
+    logits, caches = step(params, {"tokens": toks})
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = ls.launches
+    b, t = toks.shape
+    n_mamba = n_periods(cfg) * sum(s.mixer == "mamba"
+                                   for s in period_template(cfg))
+    finite = bool(torch.isfinite(logits).all())
+    shapes = [tuple(k.shape) for k, _ in caches]
+    print(f"prefill jamba B={b} T={t}: logits {tuple(logits.shape)} "
+          f"{logits.dtype} finite={finite}; attention caches (k, v) "
+          f"{shapes}; ssd_scan launches {launches}; {wall * 1e3:.1f} ms "
+          f"wall (first call); peak device memory {mem_gb():.2f} GB")
+    want = (n_periods(cfg), b, t, cfg.n_kv_heads, cfg.head_dim)
+    if logits.shape != (b, t, cfg.vocab_size) or not finite or \
+            shapes != [want] or launches != n_mamba:
+        raise AssertionError(f"prefill jamba: launches {launches} (expected "
+                             f"{n_mamba}), caches {shapes}, finite {finite}")
+    return launches
+
+
+def decode_vs_prefill(cfg, params, toks, tol: dict, what: str) -> None:
+    """Teacher-forced decode (``build_serve_step``: ``recurrent_step``,
+    decode attention) against the prefill's logits (``ssd_scan``, flash
+    attention) over the same tokens.  Every logit within ``tol``; in f32
+    also the greedy argmax at every position."""
+    import torch
+
+    from repro_torch.launch.steps import build_prefill_step, build_serve_step
+    from repro_torch.models.model import Model
+
+    b, t = toks.shape
+    par, _ = build_prefill_step(cfg)(params, {"tokens": toks})
+    step = build_serve_step(cfg)
+    state = Model(cfg).init_decode_state(b, 256, device=toks.device)
+    seq = []
+    for i in range(t):
+        lg, state = step(params, state, toks[:, i])
+        seq.append(lg)
+    seq = torch.stack(seq, dim=1).float()
+    par = par.float()
+    err = float((seq - par).abs().max())
+    top2 = par.topk(2, dim=-1).values
+    margin = top2[..., 0] - top2[..., 1]
+    agree = seq.argmax(-1) == par.argmax(-1)
+    ok_tol = torch.allclose(seq, par, **tol)
+    strict = cfg.dtype == "float32"
+    print(f"decode == prefill ({what}), {b} prompts x {t} tokens: max "
+          f"|dlogit| {err:.4g} (tolerance rtol {tol['rtol']} atol "
+          f"{tol['atol']}; largest logit {float(par.abs().max()):.4g}); "
+          f"greedy argmax equal at {int(agree.sum())}/{agree.numel()} "
+          f"positions (prefill top-2 margins where not: "
+          f"{[round(float(m), 5) for m in margin[~agree]]}; smallest margin "
+          f"{float(margin.min()):.4g}); peak device memory {mem_gb():.2f} GB")
+    if not ok_tol or (strict and not bool(agree.all())):
+        raise AssertionError(f"decode != prefill ({what})")
+
+
+def serve_jamba(cfg, params, rng) -> dict:
+    """The main path's serving: Engine(DenseAdapter), 8 requests, batch 4,
+    max_seq 256, prompts of 2-5 tokens, 8 new tokens each; ms per step
+    against the decode step's bytes bound."""
+    import torch
+
+    from repro_torch.engine import (
+        DenseAdapter,
+        Engine,
+        EngineConfig,
+        EngineRequest,
+    )
+    from repro_torch.kernels import linear_scan as ls
+    from repro_torch.models.model import Model
+
+    model = Model(cfg)
+    engine = Engine(DenseAdapter(model, params),
+                    EngineConfig(batch_size=4, max_seq=256,
+                                 max_backlog=None))
+    requests = [EngineRequest(uid=uid, prompt=rng.integers(
+        1, cfg.vocab_size, int(rng.integers(2, 6))).tolist(),
+        max_new_tokens=8) for uid in range(8)]
+    for req in requests:
+        engine.submit(req)
+    torch.cuda.synchronize()
+    ls.launches = 0
+    t0 = time.perf_counter()
+    stats = engine.run_until_drained(max_steps=500)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    # a step reads every weight but the embedding table (4 of its rows),
+    # and reads and writes the SSM state; the KV cache (<= 4.2 MB) is left
+    # out, so this is a lower bound
+    w_bytes = sum(x.numel() * x.element_size()
+                  for _, _, x in param_leaves(params)) \
+        - params["embed"].numel() * params["embed"].element_size() \
+        + 4 * cfg.d_model * params["embed"].element_size()
+    ssm = engine.state["ssm"]
+    step_bytes = w_bytes + 2 * ssm.numel() * ssm.element_size()
+    bms = step_bytes / HBM_BYTES_PER_S * 1e3
+    per_step = wall / max(1, stats.steps) * 1e3
+    print(f"serve jamba (dense): completed={stats.completed}/"
+          f"{len(requests)} steps={stats.steps} "
+          f"tokens={stats.tokens_generated} wall={wall:.3f} s "
+          f"tokens/s={stats.tokens_generated / wall:.2f} ms/decode step="
+          f"{per_step:.3f} (bound {bms:.3f} ms: {step_bytes / 1e9:.2f} GB "
+          f"at 3.35 TB/s, {per_step / bms:.1f}x); ssd_scan launches "
+          f"{ls.launches}; peak device memory {mem_gb():.2f} GB")
+    if stats.completed != len(requests):
+        raise AssertionError(f"completed {stats.completed}/{len(requests)}")
+    for req in requests:
+        if len(req.generated) != 8 or not all(
+                0 <= t < cfg.vocab_size for t in req.generated):
+            raise AssertionError(f"request {req.uid}: bad tokens "
+                                 f"{req.generated}")
+    return {"ms_per_step": per_step, "bound_ms": bms}
+
+
+def run_jamba(cfg, cuts: str, dev) -> tuple[dict, int]:
+    """The hybrid slice at ``cfg``: weights, the ssd_scan kernel line, the
+    prefill (counted), decode == prefill in bf16 and f32, and the dense
+    serve.  Returns the kernel's row and its prefill launches."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.engine import DenseAdapter, Engine, EngineConfig
+    from repro_torch.models.model import Model
+    from repro_torch.models.params import init_params
+
+    rng = np.random.default_rng(1)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(0),
+                         device=dev)
+    torch.cuda.synchronize()
+    n_params = sum(x.numel() for _, _, x in param_leaves(params))
+    n_bytes = sum(x.numel() * x.element_size()
+                  for _, _, x in param_leaves(params))
+    print(f"jamba weights: {cfg.name} at d_model {cfg.d_model}, "
+          f"{cfg.n_heads} heads / {cfg.n_kv_heads} KV heads, SSM "
+          f"{cfg.ssm.expand * cfg.d_model // cfg.ssm.head_dim} heads of "
+          f"{cfg.ssm.d_state} x {cfg.ssm.head_dim}, vocab {cfg.vocab_size}; "
+          f"cuts: {cuts}; {n_params / 1e9:.4f} B parameters "
+          f"(param_count {cfg.param_count() / 1e9:.4f} B), "
+          f"{n_bytes / 1e9:.3f} GB, seeded in "
+          f"{time.perf_counter() - t0:.2f} s; peak device memory "
+          f"{mem_gb():.2f} GB")
+    if n_params != cfg.param_count():
+        raise AssertionError("parameter tree != param_count()")
+    toks = torch.from_numpy(rng.integers(
+        1, cfg.vocab_size, (PREFILL_B, PREFILL_T))).to(dev)
+    row = check_ssd_scan(cfg, params, toks, rng, dev)
+    launches = prefill_jamba(cfg, params, toks)
+    short = torch.from_numpy(rng.integers(1, cfg.vocab_size, (2, 16))).to(dev)
+    decode_vs_prefill(cfg, params, short,
+                      dict(rtol=0.0, atol=DECODE_BF16_ATOL), "bf16")
+    serve_jamba(cfg, params, rng)
+    prompts = [rng.integers(1, cfg.vocab_size, int(rng.integers(2, 6)))
+               .tolist() for _ in range(4)]
+    profile_steps(Engine(DenseAdapter(Model(cfg), params),
+                         EngineConfig(batch_size=4, max_seq=256,
+                                      max_backlog=None)),
+                  prompts, "jamba dense bf16")
+    # the same weights widened to f32 (exact), leaf by leaf in place
+    torch.cuda.empty_cache()
+    for node, key, val in param_leaves(params):
+        node[key] = val.float()
+    del val
+    decode_vs_prefill(dataclasses.replace(cfg, dtype="float32"), params,
+                      short, DECODE_F32_TOL, "f32, the same weights")
+    return row, launches
 
 
 def main() -> int:
@@ -960,7 +1271,16 @@ def main() -> int:
         for line in build.ptxas_report(name).splitlines():
             if "registers" in line or "spill" in line:
                 print(f"ptxas {name}: {line.strip()}")
-    run(SMOLLM_135M, torch.device("cuda"))
+    dev = torch.device("cuda")
+    kernels = run(SMOLLM_135M, dev)
+    torch.cuda.empty_cache()       # the smollm trees are gone with run()
+    cfg, cuts = jamba_config()
+    row, launches = run_jamba(cfg, cuts, dev)
+    kernels.append({"name": "ssd_scan", "route": "cuda",
+                    "source": "src/repro_torch/csrc/ssd_scan.cu",
+                    "replaces": "src/repro/kernels/linear_scan.py:92",
+                    "launches": launches, **row})
+    print(json.dumps({"kernels": kernels}))
     print(f"card: {card}")
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -968,11 +1288,13 @@ def main() -> int:
     return 0
 
 
-def run(cfg, dev) -> None:
-    """Every phase after the build, on ``cfg`` (smollm-135m at full
-    width and depth from :func:`main`); prints the ``kernels`` line."""
+def run(cfg, dev) -> list[dict]:
+    """Every smollm phase after the build, on ``cfg`` (smollm-135m at full
+    width and depth from :func:`main`); returns the ``kernels`` rows of
+    its six kernels."""
     import torch
 
+    from repro_torch.engine import Engine, EngineConfig, PackedAdapter
     from repro_torch.models.params import init_params
     from repro_torch.quant import QuantSpec
     from repro_torch.tree import pack_tree
@@ -1009,7 +1331,10 @@ def run(cfg, dev) -> None:
     decode_check(cfg, tree, rng, dev, kv_bits=3)
     counts3 = serve(cfg, tree, prompts, 3,
                     {**per_layer, "stream_matmul": 7 * cfg.n_layers})
-    profile_steps(cfg, tree, prompts)
+    profile_steps(Engine(PackedAdapter(cfg, tree, kv="packed", kv_bits=3),
+                         EngineConfig(batch_size=4, max_seq=256,
+                                      max_backlog=None)),
+                  prompts, "int3 weights / int3 KV")
 
     launches = {"stream_matmul": counts3["stream_matmul"],
                 "stream_attention": counts3["stream_attention"],
@@ -1038,7 +1363,7 @@ def run(cfg, dev) -> None:
         kernels.append({"name": name, "route": "cuda", "source": src,
                         "replaces": replaces, "launches": launches[name],
                         **row})
-    print(json.dumps({"kernels": kernels}))
+    return kernels
 
 
 if __name__ == "__main__":

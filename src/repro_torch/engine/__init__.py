@@ -1,5 +1,5 @@
-"""repro_torch.engine: continuous-batching packed serving engine (port of
-``src/repro/engine``: queue, metrics, scheduler)."""
+"""repro_torch.engine: continuous-batching serving engine over packed or
+dense weights (port of ``src/repro/engine``: queue, metrics, scheduler)."""
 from .metrics import EngineMetrics, RequestTiming, percentile
 from .queue import (
     REJECT_BACKLOG_FULL,
@@ -10,6 +10,7 @@ from .queue import (
 )
 from .scheduler import (
     STAGES,
+    DenseAdapter,
     Engine,
     EngineConfig,
     PackedAdapter,
@@ -20,6 +21,7 @@ from .scheduler import (
 __all__ = [
     "Admission",
     "AdmissionQueue",
+    "DenseAdapter",
     "Engine",
     "EngineConfig",
     "EngineMetrics",

@@ -1,10 +1,10 @@
-"""Stage-decoupled continuous-batching scheduler over packed weights.
+"""Stage-decoupled continuous-batching scheduler over packed or dense weights.
 
 Port of ``src/repro/engine/scheduler.py``: :class:`Engine`,
-:class:`EngineConfig`, :func:`greedy_sampler` and :class:`PackedAdapter`
-(``kv="packed" | "dense"``), with a torch :func:`_reset_state_slot` in
-place of the reference's ``.at[].set``.  ``DenseAdapter`` and the stream
-uploader come with later slices.
+:class:`EngineConfig`, :func:`greedy_sampler`, :class:`DenseAdapter`
+(``:131-166``) and :class:`PackedAdapter` (``kv="packed" | "dense"``),
+with a torch :func:`_reset_state_slot` in place of the reference's
+``.at[].set``.  The stream uploader comes with a later slice.
 
 The engine drives a fixed pool of decode *slots* through four stages
 every step — admit (queue -> free slots), prefill (assemble the ragged
@@ -25,8 +25,8 @@ import torch
 from .metrics import EngineMetrics
 from .queue import Admission, AdmissionQueue, EngineRequest
 
-__all__ = ["Engine", "EngineConfig", "PackedAdapter", "ServeStats",
-           "greedy_sampler"]
+__all__ = ["DenseAdapter", "Engine", "EngineConfig", "PackedAdapter",
+           "ServeStats", "greedy_sampler"]
 
 #: engine stages, in execution order
 STAGES = ("admit", "prefill", "decode", "retire")
@@ -76,13 +76,51 @@ class EngineConfig:
 
 
 def _reset_state_slot(state: dict, i: int) -> None:
-    """Zero slot ``i``'s clock, in place.  Dense KV caches need no
-    clearing (the per-row position mask hides stale entries); packed KV
-    pages are cleared so their bytes do not depend on the slot's previous
-    request."""
+    """Zero slot ``i``'s clock and recurrent (Mamba) state, in place.
+    Dense KV caches need no clearing (the per-row position mask hides
+    stale entries); packed KV pages are cleared so their bytes do not
+    depend on the slot's previous request."""
     state["pos"][i] = 0
     if "packed_kv" in state:
         state["packed_kv"].reset(i)
+    if "ssm" in state:
+        state["ssm"][:, :, i] = 0.0
+
+
+class DenseAdapter:
+    """Full-batch stepping over ``Model.decode_step`` (dense and hybrid
+    families, unquantized weights).
+
+    Inactive rows step with token 0 and their results are discarded, as
+    in the reference: every step runs the whole batch.  Everything runs on
+    the parameters' device.
+    """
+
+    def __init__(self, model, params: dict) -> None:
+        self.model = model
+        self.params = params
+
+    @property
+    def device(self) -> torch.device:
+        return self.params["embed"].device
+
+    def init_state(self, batch_size: int, max_seq: int) -> dict:
+        return self.model.init_decode_state(batch_size, max_seq,
+                                            device=self.device)
+
+    def reset_slot(self, state: dict, i: int) -> None:
+        _reset_state_slot(state, i)
+
+    def step(self, state: dict, tokens: np.ndarray,
+             active: Sequence[int]) -> tuple[np.ndarray, dict]:
+        """tokens: (n_active,) aligned with ``active`` slot ids.  Returns
+        (f32 logits rows aligned with ``active``, new state)."""
+        b = int(state["pos"].shape[0])
+        toks = np.zeros(b, dtype=np.int64)
+        toks[list(active)] = tokens
+        logits, state = self.model.decode_step(
+            self.params, state, torch.from_numpy(toks).to(self.device))
+        return logits.to(torch.float32).cpu().numpy()[list(active)], state
 
 
 class PackedAdapter:

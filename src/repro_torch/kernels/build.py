@@ -27,7 +27,7 @@ BUILD_DIR = pathlib.Path(__file__).resolve().parents[3] / "build" / "repro_torch
 
 #: every kernel source of the port, by library name
 KERNELS = ("stream_matmul", "stream_attention", "packed_matmul",
-           "layout_pack", "layout_decode")
+           "layout_pack", "layout_decode", "ssd_scan")
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")

@@ -3,10 +3,11 @@
 Own port of ``src/repro/kernels/ref.py``: the funnel-shift
 :func:`extract`, :func:`stream_matmul_ref` and :func:`packed_matmul_ref`
 (both keeping the reference's K-block accumulation order),
-:func:`stream_kv_ref`, and the plain versions of the layout kernels:
+:func:`stream_kv_ref`, the plain versions of the layout kernels:
 :func:`decode_fused_ref` (one ``(row, lane)`` slot-table entry at a
 time), :func:`decode_slot_ref` and :func:`pack_fused_ref` (gather, shift
-and OR over the K contributions of each word).  They run on any device;
+and OR over the K contributions of each word), and :func:`ssd_scan_plain`
+(the chunked closed form of ``src/repro/kernels/linear_scan.py:42-70``).  They run on any device;
 the kernel wrappers call them only for CPU tensors, and
 ``chip_smoke.py`` holds each CUDA kernel against them on the card.
 
@@ -210,3 +211,58 @@ def stream_kv_ref(words: torch.Tensor, tabs: dict, *, bits: int
 
     return (one(tabs["k"], tabs["k_scales"]),
             one(tabs["v"], tabs["v_scales"]))
+
+
+def ssd_scan_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                   logw: torch.Tensor, *, chunk: int = 128,
+                   state0: torch.Tensor | None = None,
+                   return_state: bool = False):
+    """The scalar-decay linear-attention scan in the chunked closed form
+    of the reference's ``_ssd_kernel``, all (batch, head) pairs at once,
+    chunk after chunk, in f32.  Per C-token chunk, with
+    ``L = cumsum(logw)``::
+
+        o     = (q * e^L) @ S_in + tril(q k^T * e^{L_t - L_i}) @ v
+        S_out = e^{L_C} S_in + (k * e^{L_C - L})^T @ v
+
+    The exponent is masked to ``-inf`` above the diagonal *before* the
+    exponential (the reference masks after it, where ``e^{L_t - L_i}``
+    with ``i > t`` can overflow).  T is padded to a multiple of ``chunk``
+    with zero q/k/v and zero ``logw`` (decay 1: the state is unchanged),
+    and the output sliced back.
+
+    q/k: (B, T, H, dk), v: (B, T, H, dv), logw: (B, T, H) (<= 0),
+    state0: (B, H, dk, dv) or None (zeros).  Returns out (B, T, H, dv) in
+    q's dtype, and with ``return_state`` also the final state (B, H, dk,
+    dv) f32.
+    """
+    b, t, h, dk = q.shape
+    dv = v.shape[-1]
+    pad = -t % chunk
+    f32 = torch.float32
+
+    def heads(a):                                   # (B, H, Tp, d)
+        a = a.to(f32).transpose(1, 2)
+        return torch.nn.functional.pad(a, (0, 0, 0, pad)) if pad else a
+
+    qh, kh, vh = heads(q), heads(k), heads(v)
+    wh = torch.nn.functional.pad(logw.to(f32).transpose(1, 2), (0, pad))
+    s = torch.zeros((b, h, dk, dv), dtype=f32, device=q.device) \
+        if state0 is None else state0.to(f32)
+    keep = torch.ones((chunk, chunk), dtype=torch.bool,
+                      device=q.device).tril()
+    outs = []
+    for c0 in range(0, t + pad, chunk):
+        qc, kc = qh[:, :, c0:c0 + chunk], kh[:, :, c0:c0 + chunk]
+        vc = vh[:, :, c0:c0 + chunk]
+        el = torch.cumsum(wh[:, :, c0:c0 + chunk], dim=-1)   # (B, H, C)
+        o = (qc * torch.exp(el)[..., None]) @ s
+        diff = torch.where(keep, el[..., :, None] - el[..., None, :],
+                           -torch.inf)
+        o = o + ((qc @ kc.transpose(-1, -2)) * torch.exp(diff)) @ vc
+        outs.append(o)
+        last = el[..., -1:]
+        s = torch.exp(last)[..., None] * s + (
+            kc * torch.exp(last - el)[..., None]).transpose(-1, -2) @ vc
+    out = torch.cat(outs, dim=2)[:, :, :t].transpose(1, 2).to(q.dtype)
+    return (out, s) if return_state else out

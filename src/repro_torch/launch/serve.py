@@ -1,21 +1,26 @@
-"""Serving launcher CLI for the port (continuous batching, Iris-packed).
+"""Serving launcher CLI for the port (continuous batching).
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch smollm-135m \
         --packed --bits 3 [--reduced] [--device cpu]
+    PYTHONPATH=src python -m repro_torch.launch.serve \
+        --arch jamba-1.5-large-398b --reduced [--device cpu]
 
 Port of ``src/repro/launch/serve.py``, same flags plus ``--device``
-(default ``cuda``).  ``--packed`` is required: the port serves the packed
-path only (the dense model families come with a later slice).  Weights
-are seeded random (``--seed``), quantized to ``--bits`` and packed into
-per-layer Iris streams by :func:`repro_torch.tree.pack_tree`.  As in the
-reference, lane-packable widths (2/4/8) serve through the lane-packed
-kernel views (``packed_matmul``) and every other width stream-direct
-(``stream_matmul`` reads the streams); the KV cache is a packed Iris
-stream read by the stream attention kernel.
+(default ``cuda``).  Weights are seeded random (``--seed``).  With
+``--packed`` they are quantized to ``--bits`` and packed into per-layer
+Iris streams by :func:`repro_torch.tree.pack_tree`; as in the reference,
+lane-packable widths (2/4/8) serve through the lane-packed kernel views
+(``packed_matmul``) and every other width stream-direct
+(``stream_matmul`` reads the streams), and the KV cache is a packed Iris
+stream read by the stream attention kernel (dense archs only).  Without ``--packed`` the model serves unquantized through
+``DenseAdapter`` (``Model.decode_step``), dense or hybrid; a hybrid's MoE
+sublayers are not ported yet (ROADMAP A13), so the CLI says so and serves
+the config with ``moe=None`` (every sublayer takes the dense MLP).
 """
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import time
 
 import numpy as np
@@ -65,39 +70,54 @@ def main(argv=None) -> dict:
     args = ap.parse_args(argv)
 
     from ..configs import get_config
-    from ..engine import Engine, EngineConfig, EngineRequest, PackedAdapter
-    from ..models.params import init_params
+    from ..engine import (
+        DenseAdapter,
+        Engine,
+        EngineConfig,
+        EngineRequest,
+        PackedAdapter,
+    )
+    from ..models.model import Model
     from ..models.quantized import bytes_per_token_report, quantizable
     from ..quant import QuantSpec
     from ..tree import pack_tree
 
-    if not args.packed:
-        raise SystemExit("the port serves the packed path only: pass "
-                         "--packed")
     if args.device.startswith("cuda") and not torch.cuda.is_available():
         raise SystemExit("no CUDA device; pass --device cpu")
     cfg = get_config(args.arch)
     if args.reduced:
         cfg = cfg.reduced()
-    if not quantizable(cfg):
+    if args.packed and not quantizable(cfg):
         raise SystemExit(f"{cfg.name}: packed path covers dense archs")
-    params = init_params(
-        cfg, torch.Generator(device=args.device).manual_seed(args.seed),
+    if cfg.moe is not None:
+        print(f"{cfg.name}: MoE sublayers are not ported yet (ROADMAP A13); "
+              f"serving moe=None, every sublayer with the dense MLP "
+              f"(d_ff={cfg.d_ff})")
+        cfg = dataclasses.replace(cfg, moe=None)
+    model = Model(cfg)
+    params = model.init(
+        torch.Generator(device=args.device).manual_seed(args.seed),
         device=args.device)
     rng = np.random.default_rng(args.seed)
-    qspec = QuantSpec(bits=args.bits, group_size=32)
-    pt = pack_tree(cfg, params, qspec, device=args.device)
-    del params
-    rep = bytes_per_token_report(cfg, pt)
-    print(f"weight stream/token: packed={rep['packed_MiB']:.2f} MiB "
-          f"padded-int={rep['padded_int_MiB']:.2f} "
-          f"bf16={rep['bf16_MiB']:.2f} "
-          f"({rep['bf16_MiB'] / rep['packed_MiB']:.2f}x reduction)")
-    print(pt.summary())
-    mode = "lane-packed (packed_matmul)" if pt.packed \
-        else f"stream-direct (int{args.bits})"
-    print(f"serving path: {mode}, packed int{args.bits} KV")
-    adapter = PackedAdapter(cfg, pt, kv="packed", kv_bits=args.bits)
+    if args.packed:
+        qspec = QuantSpec(bits=args.bits, group_size=32)
+        pt = pack_tree(cfg, params, qspec, device=args.device)
+        del params
+        rep = bytes_per_token_report(cfg, pt)
+        print(f"weight stream/token: packed={rep['packed_MiB']:.2f} MiB "
+              f"padded-int={rep['padded_int_MiB']:.2f} "
+              f"bf16={rep['bf16_MiB']:.2f} "
+              f"({rep['bf16_MiB'] / rep['packed_MiB']:.2f}x reduction)")
+        print(pt.summary())
+        mode = "lane-packed (packed_matmul)" if pt.packed \
+            else f"stream-direct (int{args.bits})"
+        print(f"serving path: {mode}, packed int{args.bits} KV")
+        adapter = PackedAdapter(cfg, pt, kv="packed", kv_bits=args.bits)
+    else:
+        n = cfg.param_count()
+        print(f"serving path: dense ({cfg.family}, {cfg.n_layers} layers, "
+              f"{n / 1e6:.2f} M parameters, {cfg.dtype})")
+        adapter = DenseAdapter(model, params)
     engine = Engine(adapter, EngineConfig(
         batch_size=args.batch_size, max_seq=args.max_seq,
         max_backlog=None, policy=args.policy))

@@ -1,14 +1,51 @@
-"""Decode attention (single query position over a KV cache).
+"""GQA attention: blockwise flash for prefill, direct for decode.
 
-Port of ``src/repro/models/attention.py:24, 52-62, 133-176``:
-:data:`NEG_INF`, :func:`decode_attention` (plain PyTorch) and
-:func:`stream_decode_attention` over a packed KV cache.
+Port of ``src/repro/models/attention.py``: :data:`NEG_INF`,
+:func:`init_attention`, :func:`_project`, :func:`flash_attention`
+(``:64-130``), :func:`decode_attention`, :func:`stream_decode_attention`
+over a packed KV cache, :func:`attention_block` (``:182-200``) and
+:func:`attention_decode_block` (``:202-222``).  Cross-attention comes
+with the encoder-decoder family.
+
+:func:`flash_attention` is the reference's online softmax over query and
+key/value blocks, in plain PyTorch (it is no Pallas kernel): f32 scores
+of the model-dtype inputs, masked to ``NEG_INF``, the V contraction in
+f32, the output in the query dtype.  It does not call
+``scaled_dot_product_attention``.
 """
 from __future__ import annotations
 
 import torch
 
+from .layers import apply_rope, dense_init
+
 NEG_INF = -1e30
+
+
+def init_attention(gen: torch.Generator, cfg, *, lead: tuple = (),
+                   device=None) -> dict:
+    d, h, hkv, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    dtype = getattr(torch, cfg.dtype)
+
+    def dense(d_in, d_out, scale=None):
+        return dense_init(gen, d_in, d_out, dtype, lead=lead, scale=scale,
+                          device=device)
+
+    p = {"wq": dense(d, h * hd), "wk": dense(d, hkv * hd),
+         "wv": dense(d, hkv * hd),
+         "wo": dense(h * hd, d, scale=(h * hd) ** -0.5)}
+    if cfg.use_bias:
+        for name, n in (("bq", h * hd), ("bk", hkv * hd), ("bv", hkv * hd),
+                        ("bo", d)):
+            p[name] = torch.zeros(lead + (n,), dtype=dtype, device=device)
+    return p
+
+
+def _project(cfg, p: dict, x: torch.Tensor, name: str) -> torch.Tensor:
+    y = x @ p[f"w{name}"]
+    if cfg.use_bias:
+        y = y + p[f"b{name}"]
+    return y
 
 
 def repeat_kv(kv: torch.Tensor, n_heads: int) -> torch.Tensor:
@@ -17,6 +54,49 @@ def repeat_kv(kv: torch.Tensor, n_heads: int) -> torch.Tensor:
     if hkv == n_heads:
         return kv
     return torch.repeat_interleave(kv, n_heads // hkv, dim=2)
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True, q_chunk: int = 1024,
+                    kv_chunk: int = 1024) -> torch.Tensor:
+    """q: (B, Sq, H, hd); k/v: (B, Skv, Hkv, hd).  Returns (B, Sq, H, hd)."""
+    b, sq, h, hd = q.shape
+    skv = k.shape[1]
+    k = repeat_kv(k, h)
+    v = repeat_kv(v, h)
+    scale = hd ** -0.5
+    q_chunk = min(q_chunk, sq)
+    kv_chunk = min(kv_chunk, skv)
+    nq, nkv = -(-sq // q_chunk), -(-skv // kv_chunk)
+    dev = q.device
+    outs = []
+    for qi in range(nq):
+        q_base = qi * q_chunk
+        qb = q[:, q_base:q_base + q_chunk].to(torch.float32)
+        cq = qb.shape[1]
+        q_pos = torch.arange(q_base, q_base + cq, device=dev)
+        m = torch.full((b, h, cq), NEG_INF, dtype=torch.float32, device=dev)
+        lsum = torch.zeros((b, h, cq), dtype=torch.float32, device=dev)
+        acc = torch.zeros((b, h, cq, hd), dtype=torch.float32, device=dev)
+        for kj in range(nkv):
+            kv_base = kj * kv_chunk
+            kb = k[:, kv_base:kv_base + kv_chunk].to(torch.float32)
+            vb = v[:, kv_base:kv_base + kv_chunk].to(torch.float32)
+            kv_pos = torch.arange(kv_base, kv_base + kb.shape[1], device=dev)
+            s = torch.einsum("bqhd,bkhd->bhqk", qb, kb) * scale
+            if causal:
+                mask = kv_pos[None, :] <= q_pos[:, None]
+                s = torch.where(mask[None, None], s, NEG_INF)
+            m_new = torch.maximum(m, s.amax(dim=-1))
+            p = torch.exp(s - m_new[..., None])
+            corr = torch.exp(m - m_new)
+            lsum = lsum * corr + p.sum(dim=-1)
+            acc = acc * corr[..., None] + torch.einsum("bhqk,bkhd->bhqd", p,
+                                                       vb)
+            m = m_new
+        out = acc / torch.clamp(lsum, min=1e-30)[..., None]
+        outs.append(out.transpose(1, 2))                 # (B, cq, H, hd)
+    return torch.cat(outs, dim=1).to(q.dtype)
 
 
 def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
@@ -65,3 +145,47 @@ def stream_decode_attention(kvc, q: torch.Tensor, pos: torch.Tensor,
             kvc.layer_words(layer), slot_ids, q, pos, tabs["k"],
             tabs["k_scales"], tabs["v"], tabs["v_scales"], bits=kvc.bits)
     return stream_attention_cache(kvc, q, pos, slot_ids, layer=layer)
+
+
+def attention_block(cfg, p: dict, x: torch.Tensor, positions: torch.Tensor,
+                    inv_freq) -> torch.Tensor:
+    """Full-sequence causal self-attention (prefill).  x: (B, S, d)."""
+    b, s, _ = x.shape
+    h, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    q = _project(cfg, p, x, "q").reshape(b, s, h, hd)
+    k = _project(cfg, p, x, "k").reshape(b, s, hkv, hd)
+    v = _project(cfg, p, x, "v").reshape(b, s, hkv, hd)
+    q = apply_rope(q, positions, inv_freq)
+    k = apply_rope(k, positions, inv_freq)
+    out = flash_attention(q, k, v, causal=True)
+    return _project(cfg, p, out.reshape(b, s, h * hd), "o")
+
+
+def attention_decode_block(cfg, p: dict, x: torch.Tensor,
+                           k_cache: torch.Tensor, v_cache: torch.Tensor,
+                           pos: torch.Tensor, inv_freq) -> torch.Tensor:
+    """One-token step; x: (B, 1, d); pos: (B,) per-row write positions.
+
+    Writes this token's K/V into the caches **in place** (the reference
+    returns new caches).  A row whose position is past the cache keeps its
+    cache unchanged, as the reference's out-of-range ``.at[].set`` drops
+    the write (an idle engine slot steps on and is reset on admission).
+    Returns the block's output (B, 1, d)."""
+    b = x.shape[0]
+    h, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    q = _project(cfg, p, x, "q").reshape(b, 1, h, hd)
+    k = _project(cfg, p, x, "k").reshape(b, 1, hkv, hd)
+    v = _project(cfg, p, x, "v").reshape(b, 1, hkv, hd)
+    pos_b = pos[:, None]
+    q = apply_rope(q, pos_b, inv_freq)
+    k = apply_rope(k, pos_b, inv_freq)
+    rows = torch.arange(b, device=x.device)
+    smax = k_cache.shape[1]
+    idx = pos.to(torch.int64).clamp(max=smax - 1)
+    keep = (pos < smax)[:, None, None]
+    k_cache[rows, idx] = torch.where(keep, k[:, 0].to(k_cache.dtype),
+                                     k_cache[rows, idx])
+    v_cache[rows, idx] = torch.where(keep, v[:, 0].to(v_cache.dtype),
+                                     v_cache[rows, idx])
+    out = decode_attention(q, k_cache, v_cache, pos)
+    return _project(cfg, p, out.reshape(b, 1, h * hd), "o")

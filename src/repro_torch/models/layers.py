@@ -1,14 +1,40 @@
-"""Shared model building blocks: norms, activations, RoPE.
+"""Shared model building blocks: init, norms, activations, RoPE, MLP.
 
-Port of ``src/repro/models/layers.py:27-107`` (:func:`apply_norm`,
-:func:`activation`, :func:`rope_freqs`, :func:`apply_rope`; M-RoPE is
-left out with the VLM family).  Plain functions on tensors; parameters
-are plain dicts, as in the reference.
+Port of ``src/repro/models/layers.py`` (:func:`dense_init`,
+:func:`init_norm`, :func:`apply_norm`, :func:`activation`,
+:func:`rope_freqs`, :func:`apply_rope`, :func:`init_mlp`,
+:func:`apply_mlp`; M-RoPE and the sinusoidal table are left out with the
+VLM and encoder-decoder families).  Plain functions on tensors;
+parameters are plain dicts, as in the reference.  The init functions take
+a ``torch.Generator`` and a leading shape ``lead`` (the stacking over
+periods that the reference gets from ``vmap``).
 """
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+
+
+def dense_init(gen: torch.Generator, d_in: int, d_out: int, dtype, *,
+               lead: tuple = (), scale: float | None = None,
+               device=None) -> torch.Tensor:
+    """Truncated normal in [-2, 2] drawn in f32, times ``scale``
+    (``d_in ** -0.5`` by default), cast to ``dtype``: shape
+    ``lead + (d_in, d_out)``."""
+    scale = d_in ** -0.5 if scale is None else scale
+    t = torch.empty(lead + (d_in, d_out), dtype=torch.float32,
+                    device=device)
+    torch.nn.init.trunc_normal_(t, 0.0, 1.0, -2.0, 2.0, generator=gen)
+    return (t * scale).to(dtype)
+
+
+def init_norm(cfg, d: int, *, lead: tuple = (), device=None) -> dict:
+    p = {"scale": torch.ones(lead + (d,), dtype=torch.float32,
+                             device=device)}
+    if cfg.norm == "layernorm":
+        p["bias"] = torch.zeros(lead + (d,), dtype=torch.float32,
+                                device=device)
+    return p
 
 
 def apply_norm(cfg, p: dict, x: torch.Tensor, eps: float = 1e-5
@@ -54,3 +80,32 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
     x1, x2 = torch.chunk(x.to(torch.float32), 2, dim=-1)
     y = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
     return y.to(x.dtype)
+
+
+def init_mlp(gen: torch.Generator, cfg, *, lead: tuple = (),
+             device=None) -> dict:
+    d, f = cfg.d_model, cfg.d_ff
+    dtype = getattr(torch, cfg.dtype)
+    p = {
+        "w_gate": dense_init(gen, d, f, dtype, lead=lead, device=device),
+        "w_up": dense_init(gen, d, f, dtype, lead=lead, device=device),
+        "w_down": dense_init(gen, f, d, dtype, lead=lead, scale=f ** -0.5,
+                             device=device),
+    }
+    if cfg.use_bias:
+        for name, n in (("b_gate", f), ("b_up", f), ("b_down", d)):
+            p[name] = torch.zeros(lead + (n,), dtype=dtype, device=device)
+    return p
+
+
+def apply_mlp(cfg, p: dict, x: torch.Tensor) -> torch.Tensor:
+    g = x @ p["w_gate"]
+    u = x @ p["w_up"]
+    if cfg.use_bias:
+        g = g + p["b_gate"]
+        u = u + p["b_up"]
+    h = activation(cfg.act, g) * u
+    y = h @ p["w_down"]
+    if cfg.use_bias:
+        y = y + p["b_down"]
+    return y

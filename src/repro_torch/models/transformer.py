@@ -1,0 +1,135 @@
+"""Layer stack for the dense and hybrid families.
+
+Port of ``src/repro/models/transformer.py``: :class:`SubLayerSpec`,
+:func:`period_template` (``:42-52``), :func:`n_periods`,
+:func:`init_stack` (``:88-100``), :func:`_sublayer_forward`
+(``:105-149``) and :func:`forward_stack` (``:152-195``).  A period is the
+smallest repeating sublayer template: one ``[attn -> mlp]`` sublayer for
+the dense family; ``attn_every`` sublayers for the hybrid (jamba), the
+last one attention and the rest Mamba.  Every parameter leaf is stacked
+over periods, as in the reference; where the reference scans over
+periods, this is a Python loop.  There is no remat (a training concern,
+ROADMAP A14).
+
+Not yet ported, and refused with ``NotImplementedError``: MoE sublayers,
+the RWKV (``ssm``) family and the encoder-decoder / VLM families (ROADMAP
+A13).
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+from . import attention as attn
+from . import mamba as mam
+from .layers import apply_mlp, apply_norm, init_mlp, init_norm, rope_freqs
+
+
+@dataclasses.dataclass(frozen=True)
+class SubLayerSpec:
+    mixer: str                   # "attn" | "mamba"
+    ffn: str                     # "mlp"
+
+
+def check_supported(cfg) -> None:
+    """Raise for the parts of A13 that later PRs port."""
+    if cfg.moe is not None:
+        raise NotImplementedError(
+            f"{cfg.name}: MoE sublayers are not ported yet (ROADMAP A13, "
+            f"moe.py); pass a config with moe=None")
+    if cfg.family not in ("dense", "hybrid"):
+        raise NotImplementedError(
+            f"{cfg.name}: the {cfg.family!r} family is not ported yet "
+            f"(ROADMAP A13)")
+
+
+def period_template(cfg) -> tuple[SubLayerSpec, ...]:
+    check_supported(cfg)
+    return tuple(SubLayerSpec("attn" if cfg.layer_is_attn(s) else "mamba",
+                              "mlp")
+                 for s in range(max(1, cfg.attn_every)))
+
+
+def n_periods(cfg) -> int:
+    p = max(1, cfg.attn_every)
+    if cfg.n_layers % p:
+        raise ValueError(f"n_layers={cfg.n_layers} not divisible by "
+                         f"period {p}")
+    return cfg.n_layers // p
+
+
+def init_stack(gen: torch.Generator, cfg, *, device=None) -> list[dict]:
+    """Per-sublayer parameter trees, each leaf stacked over n_periods.
+    Draws the mixer's weights, then the MLP's, sublayer after sublayer."""
+    lead = (n_periods(cfg),)
+    out = []
+    for spec in period_template(cfg):
+        p = {"norm1": init_norm(cfg, cfg.d_model, lead=lead, device=device),
+             "norm2": init_norm(cfg, cfg.d_model, lead=lead, device=device)}
+        if spec.mixer == "attn":
+            p["attn"] = attn.init_attention(gen, cfg, lead=lead,
+                                            device=device)
+        else:
+            p["mamba"] = mam.init_mamba(gen, cfg, lead=lead, device=device)
+        p["mlp"] = init_mlp(gen, cfg, lead=lead, device=device)
+        out.append(p)
+    return out
+
+
+def period_params(tree, i: int):
+    """Period ``i``'s slice of a stacked parameter (sub)tree."""
+    if isinstance(tree, dict):
+        return {k: period_params(v, i) for k, v in tree.items()}
+    return tree[i]
+
+
+def _sublayer_forward(cfg, spec: SubLayerSpec, p: dict, x: torch.Tensor,
+                      positions: torch.Tensor, inv_freq,
+                      collect_cache: bool = False):
+    """Returns (x, cache_kv or None).  The Mamba final state is
+    discarded, as in the reference (``:125``)."""
+    cache = None
+    h = apply_norm(cfg, p["norm1"], x)
+    if spec.mixer == "attn":
+        b, s, _ = h.shape
+        if collect_cache:
+            k = attn._project(cfg, p["attn"], h, "k").reshape(
+                b, s, cfg.n_kv_heads, cfg.head_dim)
+            v = attn._project(cfg, p["attn"], h, "v").reshape(
+                b, s, cfg.n_kv_heads, cfg.head_dim)
+            k = attn.apply_rope(k, positions, inv_freq)
+            cache = (k, v)
+        x = x + attn.attention_block(cfg, p["attn"], h, positions, inv_freq)
+    else:
+        y, _ = mam.apply_mamba(cfg, p["mamba"], h)
+        x = x + y
+    h2 = apply_norm(cfg, p["norm2"], x)
+    x = x + apply_mlp(cfg, p["mlp"], h2)
+    return x, cache
+
+
+def forward_stack(cfg, blocks: list[dict], x: torch.Tensor,
+                  positions: torch.Tensor, *, collect_cache: bool = False):
+    """Run the period stack.  Returns (x, caches or None): per attention
+    sublayer, (k, v) stacked over periods (n_periods, B, S, Hkv, hd)."""
+    template = period_template(cfg)
+    inv_freq = rope_freqs(cfg, x.device)
+    per_period = []
+    for i in range(n_periods(cfg)):
+        caches = []
+        for si, spec in enumerate(template):
+            x, cache = _sublayer_forward(
+                cfg, spec, period_params(blocks[si], i), x, positions,
+                inv_freq,
+                collect_cache=collect_cache and spec.mixer == "attn")
+            if cache is not None:
+                caches.append(cache)
+        per_period.append(caches)
+    if not collect_cache:
+        return x, None
+    stacked = tuple(
+        (torch.stack([pc[j][0] for pc in per_period]),
+         torch.stack([pc[j][1] for pc in per_period]))
+        for j in range(len(per_period[0])))
+    return x, stacked

@@ -70,8 +70,9 @@ def _needs_no_cuda():
 
 
 def test_entry_points_raise_without_cuda_and_device():
-    from repro_torch.configs import SMOLLM_135M
+    from repro_torch.configs import JAMBA_1_5_LARGE, SMOLLM_135M
     from repro_torch.kvcache import PackedKVCache
+    from repro_torch.models.model import Model
     from repro_torch.models.params import init_params
     from repro_torch.quant import QuantSpec
     from repro_torch.tree import pack_tree
@@ -86,6 +87,10 @@ def test_entry_points_raise_without_cuda_and_device():
     with pytest.raises(RuntimeError, match="CUDA"):
         PackedKVCache.create(cfg, bits=3, page_tokens=4, n_slots=1,
                              max_seq=8)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        Model(cfg).init_decode_state(1, 8)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        Model(JAMBA_1_5_LARGE.reduced(moe=None, n_layers=8)).init()
 
 
 def test_serve_cli_refuses_without_cuda():
@@ -94,8 +99,9 @@ def test_serve_cli_refuses_without_cuda():
     _needs_no_cuda()
     with pytest.raises(SystemExit, match="CUDA"):
         serve.main(["--arch", "smollm-135m", "--reduced", "--packed"])
-    with pytest.raises(SystemExit, match="packed"):
-        serve.main(["--arch", "smollm-135m", "--device", "cpu"])
+    with pytest.raises(SystemExit, match="packed path covers dense"):
+        serve.main(["--arch", "jamba-1.5-large-398b", "--reduced",
+                    "--packed", "--device", "cpu"])
 
 
 def test_kernel_wrappers_never_fall_back():

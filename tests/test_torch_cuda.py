@@ -194,3 +194,73 @@ def test_layout_kernels_match_plain(cuda, specs, m):
         assert all(np.array_equal(out[k], codes[k]) for k in codes), kw
     assert (lp.launches, ld.fused_launches) == (before[0] + 2,
                                                 before[1] + 2)
+
+
+#: ssd_scan, f32 inputs: f32 sums in another order than the plain
+#: version (the reference's own chunked-vs-recurrent bound, 2e-4)
+SCAN_TOL = dict(rtol=2e-4, atol=2e-4)
+
+
+def _scan_case(b, t, h, dk, dv, dtype, dev, seed=0, steep=False):
+    rng = np.random.default_rng(seed)
+    q, k = (torch.from_numpy(rng.standard_normal((b, t, h, dk), np.float32)
+                             * 0.5).to(dev, dtype) for _ in range(2))
+    v = torch.from_numpy(rng.standard_normal((b, t, h, dv), np.float32)
+                         * 0.5).to(dev, dtype)
+    w = rng.standard_normal((b, t, h)) * 0.5
+    logw = np.full((b, t, h), -60.0) if steep else -np.logaddexp(w, 0.0)
+    s0 = torch.from_numpy(rng.standard_normal((b, h, dk, dv), np.float32))
+    return q, k, v, torch.from_numpy(logw.astype(np.float32)).to(dev), \
+        s0.to(dev)
+
+
+@pytest.mark.parametrize("b,t,h,dk,dv,chunk,dtype,state", [
+    (2, 128, 8, 16, 32, 128, "float32", False),   # reduced jamba widths
+    (2, 256, 4, 64, 64, 128, "float32", True),    # full width, state0
+    (1, 1000, 3, 64, 64, 128, "float32", True),   # ragged T
+    (2, 77, 3, 13, 30, 20, "float32", True),      # odd widths and chunk
+    (2, 256, 4, 64, 64, 128, "bfloat16", False),  # the served dtype
+])
+def test_ssd_scan_kernel_matches_plain(cuda, b, t, h, dk, dv, chunk, dtype,
+                                       state):
+    from repro_torch.kernels import linear_scan as ls
+
+    td = getattr(torch, dtype)
+    q, k, v, logw, s0 = _scan_case(b, t, h, dk, dv, td, cuda, seed=t)
+    s0 = s0 if state else None
+    before = ls.launches
+    got, gs = ls.ssd_scan(q, k, v, logw, chunk=chunk, state0=s0,
+                          return_state=True)
+    want, ws = ls.ssd_scan_plain(q, k, v, logw, chunk=chunk, state0=s0,
+                                 return_state=True)
+    torch.cuda.synchronize()
+    assert ls.launches == before + 1
+    assert got.dtype == td and gs.dtype == torch.float32
+    torch.testing.assert_close(gs, ws, **SCAN_TOL)
+    if dtype == "float32":
+        torch.testing.assert_close(got, want, **SCAN_TOL)
+    else:   # one bf16 ulp of the element, plus a floor near 0
+        torch.testing.assert_close(got.float(), want.float(), rtol=2 ** -7,
+                                   atol=1e-3)
+
+
+def test_ssd_scan_kernel_strided_views_and_steep_decay(cuda):
+    """q/k as views into one projection (the Mamba layer's layout), and a
+    decay of e^-60 per token: the masked triangle takes no overflowing
+    exponential, so the output is finite and each token sees itself."""
+    from repro_torch.kernels import linear_scan as ls
+
+    b, t, h, n = 2, 192, 4, 16
+    rng = np.random.default_rng(3)
+    bc = torch.from_numpy(rng.standard_normal((b, t, 2 * h * n),
+                                              np.float32)).to(cuda)
+    k, q = (a.reshape(b, t, h, n) for a in torch.split(bc, h * n, dim=-1))
+    _, _, v, logw, _ = _scan_case(b, t, h, n, 32, torch.float32, cuda,
+                                  steep=True)
+    got = ls.ssd_scan(q, k, v, logw, chunk=64)
+    torch.cuda.synchronize()
+    assert not q.is_contiguous() and torch.isfinite(got).all()
+    torch.testing.assert_close(got, ls.ssd_scan_plain(q, k, v, logw,
+                                                      chunk=64), **SCAN_TOL)
+    expect = (q * k).sum(-1, keepdim=True) * v
+    torch.testing.assert_close(got, expect, rtol=1e-3, atol=1e-3)
