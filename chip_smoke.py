@@ -9,7 +9,12 @@
 3. Packs smollm-135m at full width and depth (30 layers, seeded random
    weights) into int3 Iris streams, then holds ``stream_matmul`` and
    ``stream_attention`` against their plain PyTorch versions on the card
-   at the main path's shapes (as in the first slice).
+   at the main path's shapes (as in the first slice), each timed back to
+   back (CUDA events) and by its device time per launch
+   (``torch.profiler``, which leaves out the host's cost of a launch),
+   the library yardstick likewise.
+   ``stream_attention`` also at smollm's published context, smax 2048,
+   with ``pos`` at 2047, at a split edge and one past it, and at 0.
 4. Front door at full width: ``repro_torch.api.plan`` of one smollm layer
    as 14 element arrays (int3 codes and bf16 scale patterns of the 7
    matrices, taken from layer 0 of the int3 tree), C_max 3025.  The
@@ -61,8 +66,10 @@
    equal at every position; ``Engine(DenseAdapter)`` with 8 requests,
    batch 4, max_seq 256, 8 new tokens each, against the decode step's
    bytes bound.  Peak device memory is printed for each jamba phase.
-10. Prints one JSON ``kernels`` line (seven kernels), the card line
-    again, and last ``{"ok": true, "device": {...}}``.
+10. Prints one JSON ``kernels`` line (seven kernels; ``stream_matmul``
+    and ``stream_attention`` also carry ``device_ms`` and
+    ``library_device_ms``, and ``stream_attention`` its smax-2048 point),
+    the card line again, and last ``{"ok": true, "device": {...}}``.
 
 Any failed check raises, and the script exits non-zero without the last
 line.  Without a CUDA device it exits 2; run alone, outside the
@@ -146,6 +153,41 @@ def time_ms(fn, iters: int = 30, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
+def device_ms(fn, kernel: str | None, iters: int = 30) -> float:
+    """Device time per call of the CUDA kernel whose name contains
+    ``kernel`` (of every kernel ``fn`` launches when ``kernel`` is None):
+    ``torch.profiler``'s device time over ``iters`` back-to-back calls,
+    divided by the launches it recorded (by ``iters`` for None).  A
+    profiler warm-up step of ``iters`` calls comes first.  Unlike
+    :func:`time_ms` it leaves out the host's cost of each launch."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    # the active step's events, taken before the profiler clears them
+    ready = []
+    with profile(activities=[ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1),
+                 on_trace_ready=lambda p: ready.append(p.key_averages())
+                 ) as prof:
+        for _ in range(2):
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+            prof.step()
+    events = [e for e in ready[0]
+              if e.device_type == torch.autograd.DeviceType.CUDA
+              and (kernel is None or kernel in e.key)]
+    key = "self_device_time_total" if events and hasattr(
+        events[0], "self_device_time_total") else "self_cuda_time_total"
+    n = sum(e.count for e in events) if kernel is not None else iters
+    if n == 0:
+        raise AssertionError(f"the profiler recorded no launch of {kernel}")
+    if n != iters:
+        print(f"device_ms: the profiler recorded {n} of {iters} launches of "
+              f"{kernel}")
+    return sum(getattr(e, key) for e in events) / n / 1e3
+
+
 def bound_ms(n_bytes: float, flops: float) -> tuple[float, str]:
     tb, tf = n_bytes / HBM_BYTES_PER_S, flops / F32_FLOPS
     return (max(tb, tf) * 1e3, "bytes" if tb >= tf else "operations")
@@ -174,8 +216,9 @@ def check_stream_matmul(tree, rng, dev) -> dict:
     bits, g = tree.spec.bits, tree.spec.group_size
     n_layers = tree.n_layers
     max_err = 0.0
-    layer = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0,
-             "bytes": 0, "table_bytes": 0, "flops": 0}
+    layer = {"ms": 0.0, "device_ms": 0.0, "plain_ms": 0.0,
+             "library_ms": 0.0, "library_device_ms": 0.0, "bytes": 0,
+             "table_bytes": 0, "flops": 0}
     for key in MM_KEYS:
         w_tab, s_tab = tree.device_tables(key)
         k, n = w_tab.shape
@@ -198,9 +241,13 @@ def check_stream_matmul(tree, rng, dev) -> dict:
                 group_size=g)
             ms = time_ms(lambda: sm.stream_matmul(
                 x, words, w_tab, s_tab, bits=bits, group_size=g))
+            dms = device_ms(lambda: sm.stream_matmul(
+                x, words, w_tab, s_tab, bits=bits, group_size=g),
+                "stream_matmul_kernel")
             pms = time_ms(lambda: sm.stream_matmul_plain(
                 x, words, w_tab, s_tab, bits=bits, group_size=g), iters=5)
             lms = time_ms(lambda: torch.matmul(x, dense))
+            ldms = device_ms(lambda: torch.matmul(x, dense), None)
             # the tables serve every layer: read once per decode step
             tab_bytes = (w_tab.numel() + s_tab.numel()) * 4
             nbytes = (x.numel() * 4 + -(-k * n * bits // 8)
@@ -208,10 +255,13 @@ def check_stream_matmul(tree, rng, dev) -> dict:
             flops = 2 * m * k * n
             bms, _ = bound_ms(nbytes + tab_bytes / n_layers, flops)
             print(f"stream_matmul {key:11s} K={k:5d} N={n:5d} M={m}: "
-                  f"kernel {ms:.4f} ms  plain {pms:.4f} ms  "
-                  f"library(matmul of dequantized W) {lms:.4f} ms  "
-                  f"bound {bms:.5f} ms  max|err| {err:.3g}")
+                  f"kernel {ms:.4f} ms (device {dms:.4f} ms, grid "
+                  f"{sm.matmul_launch(m, k, n)[1]})  plain {pms:.4f} ms  "
+                  f"library(matmul of dequantized W) {lms:.4f} ms (device "
+                  f"{ldms:.4f} ms)  bound {bms:.5f} ms  max|err| {err:.3g}")
             layer["ms"] += ms
+            layer["device_ms"] += dms
+            layer["library_device_ms"] += ldms
             layer["plain_ms"] += pms
             layer["library_ms"] += lms
             layer["bytes"] += nbytes
@@ -251,26 +301,33 @@ def check_stream_matmul(tree, rng, dev) -> dict:
     cold, cold_by = bound_ms(layer["bytes"] + layer["table_bytes"],
                              layer["flops"])
     print(f"stream_matmul, one layer's 7 matmuls at M={SERVE_M}: kernel "
-          f"{layer['ms']:.4f} ms  plain {layer['plain_ms']:.4f} ms  "
-          f"library {layer['library_ms']:.4f} ms  bound {bms:.5f} ms "
+          f"{layer['ms']:.4f} ms back to back (device {layer['device_ms']:.4f}"
+          f" ms, {layer['device_ms'] / 7:.4f} ms per launch)  plain "
+          f"{layer['plain_ms']:.4f} ms  library {layer['library_ms']:.4f} "
+          f"ms (device {layer['library_device_ms']:.4f} ms)  bound "
+          f"{bms:.5f} ms "
           f"({by}; {step_bytes:.0f} B with the {layer['table_bytes']} B "
           f"of tables over {n_layers} layers, {layer['flops']} f32 FLOPs); "
           f"cold-L2 bound {cold:.5f} ms ({cold_by}; tables read on every "
           f"call)")
     return {"max_abs_err": max_err, "ms": layer["ms"],
+            "device_ms": layer["device_ms"],
             "plain_ms": layer["plain_ms"], "bound_ms": bms, "bound_by": by,
-            "library_ms": layer["library_ms"]}
+            "library_ms": layer["library_ms"],
+            "library_device_ms": layer["library_device_ms"]}
 
 
-def check_stream_attention(cfg, rng, dev) -> dict:
-    """B=4, smax=256, H=9, Hkv=3, hd=64, int3, ragged positions."""
+def check_stream_attention(cfg, rng, dev, smax: int = 256,
+                           pos: list[int] | None = None) -> dict:
+    """B=4, H=9, Hkv=3, hd=64, int3, ragged positions (by default
+    255/191/127/63 at smax 256, the first slice's shape)."""
     import torch
     import torch.nn.functional as F
 
     from repro_torch.kvcache import PackedKVCache
     from repro_torch.kvcache import stream_attention as sa
 
-    b, smax, bits = 4, 256, 3
+    b, bits = 4, 3
     h, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     kvc = PackedKVCache.create(cfg, bits=bits, page_tokens=8, n_slots=b,
                                max_seq=smax, n_layers=1, device=dev)
@@ -280,7 +337,7 @@ def check_stream_attention(cfg, rng, dev) -> dict:
         v = torch.from_numpy(rng.standard_normal((b, hkv, hd), np.float32))
         kvc.append(k.to(dev), v.to(dev), torch.full((b,), t, device=dev),
                    slots, layer=0)
-    pos = torch.tensor([255, 191, 127, 63], device=dev)
+    pos = torch.tensor(pos or [255, 191, 127, 63], device=dev)
     q = torch.from_numpy(rng.standard_normal((b, 1, h, hd), np.float32)) \
         .to(dev).to(torch.bfloat16)
     words = kvc.layer_words(0)
@@ -293,8 +350,11 @@ def check_stream_attention(cfg, rng, dev) -> dict:
     err = float((got.float() - want.float()).abs().max())
     if not torch.allclose(got.float(), want.float(), rtol=ATT_RTOL,
                           atol=ATT_ATOL):
-        raise AssertionError(f"stream_attention: max |err| {err:.3g}")
+        raise AssertionError(f"stream_attention smax={smax}: max |err| "
+                             f"{err:.3g}")
     ms = time_ms(lambda: sa.stream_attention(*args, bits=bits))
+    dms = device_ms(lambda: sa.stream_attention(*args, bits=bits),
+                    "stream_attention_kernel")
     pms = time_ms(lambda: sa.stream_attention_plain(*args, bits=bits),
                   iters=5)
     kf, vf = kvc.dense_kv(0, slots)
@@ -307,6 +367,8 @@ def check_stream_attention(cfg, rng, dev) -> dict:
     qd = q.transpose(1, 2)
     lms = time_ms(lambda: F.scaled_dot_product_attention(
         qd, kd, vd, attn_mask=mask))
+    ldms = device_ms(lambda: F.scaled_dot_product_attention(
+        qd, kd, vd, attn_mask=mask), None)
     n_tok = pos.cpu().numpy().astype(np.int64) + 1
     # the K/V offset tables serve every layer: read once per decode step
     tab_bytes = int(n_tok.max()) * hkv * (hd + 1) * 4 * 2
@@ -315,14 +377,33 @@ def check_stream_attention(cfg, rng, dev) -> dict:
     flops = int(n_tok.sum()) * h * hd * 4
     bms, by = bound_ms(nbytes + tab_bytes / cfg.n_layers, flops)
     cold, cold_by = bound_ms(nbytes + tab_bytes, flops)
+    splits, tpb, smem = sa.attention_launch(b, hkv, h // hkv, hd, smax)
     print(f"stream_attention B={b} smax={smax} H={h} Hkv={hkv} hd={hd} "
-          f"int{bits} pos={pos.tolist()}: kernel {ms:.4f} ms  plain "
-          f"{pms:.4f} ms  library(sdpa on dense_kv) {lms:.4f} ms  bound "
-          f"{bms:.6f} ms ({by}; {tab_bytes} B of tables over "
-          f"{cfg.n_layers} layers); cold-L2 bound {cold:.6f} ms "
-          f"({cold_by})  max|err| {err:.3g}")
-    return {"max_abs_err": err, "ms": ms, "plain_ms": pms, "bound_ms": bms,
-            "bound_by": by, "library_ms": lms}
+          f"int{bits} pos={pos.tolist()} (grid {b}x{hkv}x{splits}, {tpb} "
+          f"tokens a block, {smem} B shared): kernel {ms:.4f} ms back to "
+          f"back (device {dms:.4f} ms)  plain {pms:.4f} ms  library(sdpa on "
+          f"dense_kv) {lms:.4f} ms (device {ldms:.4f} ms)  bound "
+          f"{bms:.6f} ms ({by}; {tab_bytes} B "
+          f"of tables over {cfg.n_layers} layers); cold-L2 bound "
+          f"{cold:.6f} ms ({cold_by})  max|err| {err:.3g}")
+    return {"max_abs_err": err, "ms": ms, "device_ms": dms, "plain_ms": pms,
+            "bound_ms": bms, "bound_by": by, "library_ms": lms,
+            "library_device_ms": ldms}
+
+
+def check_long_attention(cfg, rng, dev) -> dict:
+    """``stream_attention`` at smollm-135m's published context (2048,
+    ``max_position_embeddings`` of ``HuggingFaceTB/SmolLM-135M``), int3,
+    B=4, with ``pos`` at 2047, at a split edge (the last token of a
+    block), one past it (the first of the next), and at 0."""
+    from repro_torch.kvcache import stream_attention as sa
+
+    smax = 2048
+    splits, tpb, _ = sa.attention_launch(
+        4, cfg.n_kv_heads, cfg.n_heads // cfg.n_kv_heads, cfg.head_dim, smax)
+    edge = (splits // 2) * tpb - 1
+    return check_stream_attention(cfg, rng, dev, smax=smax,
+                                  pos=[smax - 1, edge, edge + 1, 0])
 
 
 def decode_check(cfg, tree, rng, dev, kv_bits: int) -> None:
@@ -1311,6 +1392,9 @@ def run(cfg, dev) -> list[dict]:
 
     rows = {"stream_matmul": check_stream_matmul(tree, rng, dev),
             "stream_attention": check_stream_attention(cfg, rng, dev)}
+    # its own generator: the later phases draw what they drew before
+    rows["stream_attention"]["smax_2048"] = check_long_attention(
+        cfg, np.random.default_rng(2048), dev)
     pl, buf, slot_launches = front_door(cfg, tree, dev)
     tree4, qts4, pack_launches = int4_pack(cfg, params, dev)
     decode_launches = stack_decode(

@@ -32,7 +32,12 @@ KERNELS = ("stream_matmul", "stream_attention", "packed_matmul",
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
+#: streaming multiprocessors of an H100 SXM (the launch-shape functions'
+#: default; a wrapper passes its device's own count)
+H100_SMS = 132
+
 _LOADED: dict[str, ctypes.CDLL] = {}
+_SMS: dict[int, int] = {}
 _FUNCTIONS: dict[tuple[str, str], ctypes._CFuncPtr] = {}
 
 
@@ -124,6 +129,33 @@ def function(name: str, symbol: str, argtypes: list) -> ctypes._CFuncPtr:
         fn.restype = ctypes.c_int
         _FUNCTIONS[(name, symbol)] = fn
     return fn
+
+
+def _index(device) -> int:
+    import torch
+
+    return device.index if device.index is not None \
+        else torch.cuda.current_device()
+
+
+def device_sms(device) -> int:
+    """The SM count of a CUDA device (memoized)."""
+    import torch
+
+    idx = _index(device)
+    if idx not in _SMS:
+        _SMS[idx] = torch.cuda.get_device_properties(idx).multi_processor_count
+    return _SMS[idx]
+
+
+def stream_handle(device) -> int:
+    """The ``cudaStream_t`` of PyTorch's current stream on ``device``, as
+    an int for a C launch function.  Reads the raw handle instead of
+    building a ``torch.cuda.Stream``, whose host cost a wrapper launched
+    hundreds of times per decode step would pay on every call."""
+    import torch
+
+    return torch._C._cuda_getCurrentRawStream(_index(device))
 
 
 def check_launch(name: str, rc: int) -> None:

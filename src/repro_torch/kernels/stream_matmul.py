@@ -16,6 +16,11 @@ time is ~4.9 µs.  Every layer shares the tables and they fit the 50 MB
 L2; with them resident ~1.9 MB remain, ~0.57 µs, which at the served
 M <= 4 outweigh the 2·M·K·N f32 FLOPs (at M = 8 the FLOPs would bound
 the 7 calls, at ~0.85 µs).  ``chip_smoke.py`` prints both bounds.
+
+The kernel splits K into 8 ranges (the summation order of
+``csrc/matmul_order.cuh``) and gives each (column tile, range) pair a
+block of its own; :func:`matmul_launch` picks the column tile so that
+the grid covers the card's SMs.
 """
 from __future__ import annotations
 
@@ -26,11 +31,42 @@ import torch
 from . import build
 from .ref import stream_matmul_ref as stream_matmul_plain
 
-__all__ = ["launches", "stream_matmul", "stream_matmul_plain"]
+__all__ = ["launches", "matmul_launch", "stream_matmul",
+           "stream_matmul_plain"]
 
 #: kernel launches made by :func:`stream_matmul` (reset by callers that
 #: want to prove a run went through the kernel)
 launches = 0
+
+#: K ranges (blocks of one cluster) per column tile: MM_RANGES in
+#: csrc/matmul_order.cuh
+K_RANGES = 8
+#: output rows per block (BM in the .cu); the grid's z extent is at most
+#: 65535 tiles of rows
+ROWS_PER_BLOCK = 8
+MAX_M = ROWS_PER_BLOCK * 65535
+
+
+def matmul_launch(m: int, k: int, n: int, sms: int = build.H100_SMS
+                  ) -> tuple[int, tuple[int, int, int]]:
+    """Launch shape of the ``stream_matmul`` kernel for an (M, K) @ (K, N)
+    product: ``(bn, grid)``.  ``bn`` is the output columns per block, the
+    widest of 32, 16 and 8 whose grid ``(ceil(N / bn), 8, ceil(M / 8))``
+    has at least ``sms`` blocks (8 when none has).  Raises for an M the
+    grid cannot hold."""
+    if not 0 < m <= MAX_M or k < 1 or n < 1:
+        raise ValueError(f"stream_matmul kernel takes 1 <= M <= {MAX_M}, "
+                         f"K >= 1, N >= 1; got M={m} K={k} N={n}")
+    m_tiles = -(-m // ROWS_PER_BLOCK)
+    for bn in (32, 16, 8):
+        if -(-n // bn) * K_RANGES * m_tiles >= sms:
+            break
+    return bn, (-(-n // bn), K_RANGES, m_tiles)
+
+
+#: the C launch function's argument types
+_ARGTYPES = ([ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong]
+             + [ctypes.c_void_p] * 3 + [ctypes.c_int] * 6 + [ctypes.c_void_p])
 
 
 def _check(x, words, w_tab, s_tab, bits, group_size):
@@ -44,16 +80,21 @@ def _check(x, words, w_tab, s_tab, bits, group_size):
         raise ValueError(f"w_tab K {kt} != activations K {k}")
     if k % group_size:
         raise ValueError(f"K={k} not divisible by group_size={group_size}")
-    if tuple(s_tab.shape) != (k // group_size, n):
+    if s_tab.shape != (k // group_size, n):
         raise ValueError(
             f"s_tab shape {tuple(s_tab.shape)} != {(k // group_size, n)}")
     if words.dtype != torch.int32 or w_tab.dtype != torch.int32 \
             or s_tab.dtype != torch.int32:
         raise ValueError("stream words and offset tables must be int32 "
                          "tensors holding uint32 bits")
-    devs = {t.device for t in (x, words, w_tab, s_tab)}
-    if len(devs) != 1:
-        raise ValueError(f"operands on different devices: {devs}")
+    # get_device() (an int) is much cheaper than building torch.device
+    # objects, and this runs 210 times per decode step
+    if not (x.is_cuda == words.is_cuda == w_tab.is_cuda == s_tab.is_cuda
+            and x.is_cpu == words.is_cpu == w_tab.is_cpu == s_tab.is_cpu
+            and x.get_device() == words.get_device() == w_tab.get_device()
+            == s_tab.get_device()):
+        raise ValueError("operands on different devices: "
+                         f"{[t.device for t in (x, words, w_tab, s_tab)]}")
 
 
 def stream_matmul(x: torch.Tensor, words: torch.Tensor, w_tab: torch.Tensor,
@@ -64,28 +105,26 @@ def stream_matmul(x: torch.Tensor, words: torch.Tensor, w_tab: torch.Tensor,
     (K / group_size, N) int32 global bit offsets.  Returns (M, N) f32."""
     global launches
     _check(x, words, w_tab, s_tab, bits, group_size)
-    if x.device.type == "cpu":
-        return stream_matmul_plain(x, words, w_tab, s_tab, bits=bits,
-                                   group_size=group_size)
-    if x.device.type != "cuda":
+    if not x.is_cuda:
+        if x.is_cpu:
+            return stream_matmul_plain(x, words, w_tab, s_tab, bits=bits,
+                                       group_size=group_size)
         raise ValueError(f"stream_matmul runs on cpu or cuda, not {x.device}")
     m, k = x.shape
     n = w_tab.shape[1]
-    xf = x.to(torch.float32).contiguous()
+    xf = x if x.dtype == torch.float32 and x.is_contiguous() \
+        else x.to(torch.float32).contiguous()
     words = words.contiguous()
     w_tab = w_tab.contiguous()
     s_tab = s_tab.contiguous()
     out = torch.empty((m, n), dtype=torch.float32, device=x.device)
     if m == 0 or n == 0:
         return out
-    fn = build.function("stream_matmul", "stream_matmul_f32",
-                        [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
-                         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                         ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                         ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
+    bn, _ = matmul_launch(m, k, n, build.device_sms(x.device))
+    fn = build.function("stream_matmul", "stream_matmul_f32", _ARGTYPES)
     rc = fn(xf.data_ptr(), words.data_ptr(), words.numel(),
             w_tab.data_ptr(), s_tab.data_ptr(), out.data_ptr(), m, k, n,
-            bits, group_size, torch.cuda.current_stream(x.device).cuda_stream)
+            bits, group_size, bn, build.stream_handle(x.device))
     build.check_launch("stream_matmul", rc)
     launches += 1
     return out

@@ -22,7 +22,9 @@ def cuda():
     return torch.device("cuda")
 
 
-def _stream_case(bits, k, n, g, dev, seed=0):
+def _pack_stream(codes, pats, bits, k, n, g, dev):
+    """An Iris stream of ``codes`` (k * n, ``bits`` wide) and bf16 scale
+    patterns ``pats`` ((k / g) * n), with its offset tables on ``dev``."""
     from repro_torch.core.exec_plan import (
         lower_exec,
         pack_compiled,
@@ -32,24 +34,29 @@ def _stream_case(bits, k, n, g, dev, seed=0):
     from repro_torch.core.util import pad_bundle_elements
     from repro_torch.kernels.ref import table_tensor, words_tensor
     from repro_torch.plan import BundleTensor, bundle_problem
-    from repro_torch.quant import QuantSpec, bits16, quantize
 
-    rng = np.random.default_rng(seed)
-    qt = quantize(torch.from_numpy(rng.standard_normal((k, n), np.float32)),
-                  QuantSpec(bits=bits, group_size=g))
     prob = bundle_problem([BundleTensor("w", bits, k * n, 1),
                            BundleTensor("w_scales", 16, (k // g) * n, 1)],
                           m=512)
     lay = schedule(prob)
     prog = lower_exec(lay, elem_widths=(bits, 16))
-    data = {"w": qt.codes.numpy().reshape(-1),
-            "w_scales": bits16(qt.scales).numpy().reshape(-1)}
-    buf = pack_compiled(lay, pad_bundle_elements(prob, prog, data),
-                        program=prog)
+    buf = pack_compiled(lay, pad_bundle_elements(
+        prob, prog, {"w": codes, "w_scales": pats}), program=prog)
     tabs = stream_matmul_tables(lay, "w", (k, n), scales="w_scales",
                                 group_size=g, program=prog)
     return (words_tensor(prog.buffer_words32(buf).reshape(-1), dev),
             table_tensor(tabs.w_tab, dev), table_tensor(tabs.s_tab, dev))
+
+
+def _stream_case(bits, k, n, g, dev, seed=0):
+    from repro_torch.quant import QuantSpec, bits16, quantize
+
+    rng = np.random.default_rng(seed)
+    qt = quantize(torch.from_numpy(rng.standard_normal((k, n), np.float32)),
+                  QuantSpec(bits=bits, group_size=g))
+    return _pack_stream(qt.codes.numpy().reshape(-1),
+                        bits16(qt.scales).numpy().reshape(-1), bits, k, n, g,
+                        dev)
 
 
 @pytest.mark.parametrize("bits,m,k,n", [(3, 8, 576, 576), (3, 1, 1536, 576),
@@ -264,3 +271,153 @@ def test_ssd_scan_kernel_strided_views_and_steep_decay(cuda):
                                                       chunk=64), **SCAN_TOL)
     expect = (q * k).sum(-1, keepdim=True) * v
     torch.testing.assert_close(got, expect, rtol=1e-3, atol=1e-3)
+
+
+#: stream_attention: bf16 outputs of f32 sums taken in another order than
+#: the plain version: one bf16 ulp of the element, plus a floor near 0
+ATT_TOL = dict(rtol=2.0 ** -7, atol=1e-4)
+
+
+def _attention_cache(bits, h, hkv, hd, smax, dev, seed=0, n_slots=4):
+    from repro_torch.configs import SMOLLM_135M
+    from repro_torch.kvcache import PackedKVCache
+
+    cfg = SMOLLM_135M.reduced(n_layers=1, n_heads=h, n_kv_heads=hkv,
+                              head_dim=hd, d_model=h * hd)
+    kvc = PackedKVCache.create(cfg, bits=bits, page_tokens=8,
+                               n_slots=n_slots, max_seq=smax, device=dev)
+    rng = np.random.default_rng(seed)
+    slots = torch.arange(n_slots, device=dev)
+    for t in range(kvc.smax):
+        k = torch.from_numpy(rng.standard_normal((n_slots, hkv, hd),
+                                                 np.float32)).to(dev)
+        v = torch.from_numpy(rng.standard_normal((n_slots, hkv, hd),
+                                                 np.float32)).to(dev)
+        kvc.append(k, v, torch.full((n_slots,), t, device=dev), slots,
+                   layer=0)
+    return kvc, rng
+
+
+#: (bits, H, Hkv, hd, smax): smollm-135m's heads; an smax that is not a
+#: multiple of the split; rep 1 and 8; hd 128; an odd hd (scalar table
+#: loads)
+ATT_SPLIT_CASES = [(3, 9, 3, 64, 256), (3, 9, 3, 64, 296),
+                   (4, 8, 8, 64, 104), (3, 8, 1, 64, 200),
+                   (3, 4, 2, 128, 160), (8, 6, 2, 5, 72)]
+
+
+@pytest.mark.parametrize("bits,h,hkv,hd,smax", ATT_SPLIT_CASES)
+def test_stream_attention_split_edges(cuda, bits, h, hkv, hd, smax):
+    """``pos`` at 0, at each split edge and one either side of it, and at
+    smax - 1, four slots a call, with ragged slot ids: the kernel's
+    cluster merge against the plain version."""
+    from repro_torch.kvcache import stream_attention as sa
+
+    b = 4
+    kvc, rng = _attention_cache(bits, h, hkv, hd, smax, cuda, seed=smax)
+    smax = kvc.smax
+    splits, tpb, _ = sa.attention_launch(b, hkv, h // hkv, hd, smax)
+    assert splits > 1 and splits * tpb >= smax
+    edges = [j * tpb + d for j in range(1, splits) for d in (-1, 0, 1)]
+    want_pos = sorted({0, smax - 1, *[p for p in edges if 0 <= p < smax]})
+    want_pos += [smax - 1] * (-len(want_pos) % b)
+    tabs = kvc.device_stream_tables()
+    slots = torch.tensor([2, 0, 3, 1], device=cuda)
+    before = sa.launches
+    for i in range(0, len(want_pos), b):
+        pos = torch.tensor(want_pos[i:i + b], device=cuda)
+        q = torch.from_numpy(rng.standard_normal((b, 1, h, hd), np.float32)) \
+            .to(cuda).to(torch.bfloat16)
+        args = (kvc.layer_words(0), slots, q, pos, tabs["k"],
+                tabs["k_scales"], tabs["v"], tabs["v_scales"])
+        got = sa.stream_attention(*args, bits=bits)
+        want = sa.stream_attention_plain(*args, bits=bits)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(got.float(), want.float(), **ATT_TOL,
+                                   msg=lambda m: f"pos {pos.tolist()}: {m}")
+    assert sa.launches == before + len(want_pos) // b
+
+
+def _raw_stream_case(bits, k, n, g, dev, seed=0):
+    """Random ``bits``-wide codes (any width 1..32) and random positive
+    bf16 scale patterns in an Iris stream."""
+    rng = np.random.default_rng(seed)
+    codes = rng.integers(0, 1 << bits, k * n, dtype=np.uint64)
+    scales = rng.uniform(0.25, 2.0, (k // g) * n).astype(np.float32)
+    return _pack_stream(codes, (scales.view(np.uint32) >> 16).astype(
+        np.uint64), bits, k, n, g, dev)
+
+
+#: (bits, K, group): K = 32 (one short chunk, 4 rows a range); K = 12 and
+#: K = 260 (ranges 6-7 and 4-7 of the last chunk empty); bits 1 and 32
+MM_EDGE_CASES = [(b, k, g) for b in (1, 32)
+                 for k, g in ((32, 32), (12, 4), (260, 4))]
+
+
+@pytest.mark.parametrize("bits,k,g", MM_EDGE_CASES)
+def test_stream_matmul_kernel_edges(cuda, bits, k, g):
+    """N = 1 and M = 1..8 on the edge shapes of the K split, at the
+    extreme widths, against the plain version."""
+    from repro_torch.kernels import stream_matmul as sm
+
+    words, w_tab, s_tab = _raw_stream_case(bits, k, 1, g, cuda, seed=k)
+    rng = np.random.default_rng(bits + k)
+    for m in range(1, 9):
+        x = torch.from_numpy(rng.standard_normal((m, k), np.float32)) \
+            .to(cuda)
+        got = sm.stream_matmul(x, words, w_tab, s_tab, bits=bits,
+                               group_size=g)
+        want = sm.stream_matmul_plain(x, words, w_tab, s_tab, bits=bits,
+                                      group_size=g)
+        torch.cuda.synchronize()
+        # at 32 bits a weight reaches 2^31 x scale and outputs ~1e10: the
+        # same tolerance, relative to the largest output
+        scale = float(want.abs().max()) if bits == 32 else 1.0
+        torch.testing.assert_close(got, want, rtol=MM_RTOL,
+                                   atol=MM_ATOL * max(1.0, scale))
+
+
+@pytest.fixture(scope="module")
+def int4_layer():
+    """One smollm-135m layer at full width packed at int4 (lane-packed
+    views and the Iris stream of the same codes)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
+    import dataclasses
+
+    from repro_torch.configs import SMOLLM_135M
+    from repro_torch.models.params import init_params
+    from repro_torch.quant import QuantSpec
+    from repro_torch.tree import pack_tree
+
+    dev = torch.device("cuda")
+    cfg = dataclasses.replace(SMOLLM_135M, n_layers=1)
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(0),
+                         device=dev)
+    return pack_tree(cfg, params, QuantSpec(bits=4, group_size=32),
+                     device=dev)
+
+
+@pytest.mark.parametrize("key", ["attn/wq", "attn/wk", "attn/wv", "attn/wo",
+                                 "mlp/w_gate", "mlp/w_up", "mlp/w_down"])
+def test_stream_matmul_bit_equal_to_packed_matmul(cuda, int4_layer, key):
+    """The summation contract of csrc/matmul_order.cuh: on one int4 tree
+    the stream-direct and the lane-packed kernels give the same bits for
+    every smollm matrix at M = 1, 4 and 8."""
+    from repro_torch.kernels import packed_matmul as pm
+    from repro_torch.kernels import stream_matmul as sm
+
+    tree = int4_layer
+    pw, sc = tree.packed[key][0], tree.scales[key][0]
+    k = sc.shape[0] * tree.spec.group_size
+    rng = np.random.default_rng(k)
+    for m in (1, 4, 8):
+        x = torch.from_numpy(rng.standard_normal((m, k), np.float32)) \
+            .to(cuda)
+        before = sm.launches
+        streamed = tree.matmul_direct(x, key, 0)
+        packed = pm.packed_matmul(x, pw, sc, bits=tree.spec.bits,
+                                  group_size=tree.spec.group_size)
+        torch.cuda.synchronize()
+        assert sm.launches == before + 1
+        assert torch.equal(streamed, packed), (key, m)
