@@ -14,7 +14,9 @@
    (``torch.profiler``, which leaves out the host's cost of a launch),
    the library yardstick likewise.
    ``stream_attention`` also at smollm's published context, smax 2048,
-   with ``pos`` at 2047, at a split edge and one past it, and at 0.
+   with ``pos`` at 2047, at a split edge and one past it, and at 0; and at
+   mistral-large-123b's attention (96 query heads over 8 KV heads, 12 a
+   KV head, head_dim 128; B=4) at smax 256 and 2048, beside SDPA.
 4. Front door at full width: ``repro_torch.api.plan`` of one smollm layer
    as 14 element arrays (int3 codes and bf16 scale patterns of the 7
    matrices, taken from layer 0 of the int3 tree), C_max 3025.  The
@@ -35,10 +37,12 @@
    batch),
    ``pack_layout_fused`` (one int4 layer), ``decode_layout_fused`` (one
    int3 layer) and ``decode_slot`` (the front door's 2170 slots).  Prints
-   max errors and times: the kernel, its plain version, one PyTorch
-   library call of the same function where there is one (never used by
-   the port), and the least time the card could take (bytes over
-   3.35 TB/s or f32 FLOPs over 67 TFLOP/s, whichever is larger).  Tables
+   max errors and times: the kernel back to back and its device time per
+   launch, its plain version, one PyTorch library call of the same
+   function where there is one (never used by the port, its device time
+   beside it), and the least time the card could take (bytes over
+   3.35 TB/s or FLOPs over the peak of the unit the kernel runs them on:
+   67 TFLOP/s f32 CUDA cores, 989 TFLOP/s bf16 tensor cores).  Tables
    that all layers of a stack share are counted once per stack (spread
    over the layers); the cold figure (tables read on every call) is
    printed beside it.
@@ -50,15 +54,17 @@
    of 16 new tokens.  Launch counters are zeroed just before each path
    and read just after: int4 serving launches ``packed_matmul`` 7 x 30
    times per step and ``stream_matmul`` never; int3 the reverse.  Then a
-   ``torch.profiler`` window over 4 steady int3 engine steps.
+   ``torch.profiler`` window over 4 steady engine steps of each, int3 and
+   int4.
 9. Frees the smollm trees, then jamba-1.5-large-398b at its full widths,
    cut to one period (``n_layers`` 72 -> 8: 7 Mamba sublayers and 1 GQA
    attention sublayer) and ``moe=None`` (every sublayer takes the dense
    MLP of d_ff 24576; the MoE sublayers would not fit one card beside the
    rest): 10.77 B seeded random bf16 parameters, 21.5 GB.
    ``ssd_scan`` against its plain version on the layer-0 Mamba inputs of
-   the real prefill (bf16, B=2, T=1024, H=256, dk=dv=64) and on a ragged
-   f32 case (T=1000, ``state0``, final state); ``build_prefill_step`` at
+   the real prefill (bf16, B=2, T=1024, H=256, dk=dv=64), on a ragged
+   f32 case (T=1000, ``state0``, final state) and at Mamba-2's d_state
+   128 (dk=128, dv=64, bf16, seeded inputs); ``build_prefill_step`` at
    B=2, T=1024 (7 ``ssd_scan`` launches, counted); teacher-forced decode
    of 2 prompts of 16 tokens through ``build_serve_step`` against the
    prefill's logits, in bf16 (stated tolerance) and, with the same
@@ -66,9 +72,10 @@
    equal at every position; ``Engine(DenseAdapter)`` with 8 requests,
    batch 4, max_seq 256, 8 new tokens each, against the decode step's
    bytes bound.  Peak device memory is printed for each jamba phase.
-10. Prints one JSON ``kernels`` line (seven kernels; ``stream_matmul``
-    and ``stream_attention`` also carry ``device_ms`` and
-    ``library_device_ms``, and ``stream_attention`` its smax-2048 point),
+10. Prints one JSON ``kernels`` line (seven kernels, each with its
+    ``device_ms``; the matmuls and ``stream_attention`` also with
+    ``library_device_ms``; ``stream_attention`` with its smax-2048 and
+    rep-12 points, ``ssd_scan`` with its dk=128 point),
     the card line again, and last ``{"ok": true, "device": {...}}``.
 
 Any failed check raises, and the script exits non-zero without the last
@@ -88,9 +95,11 @@ import numpy as np
 ROOT = pathlib.Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
-#: H100 SXM data-sheet peaks (NVIDIA: 3.35 TB/s HBM3, 67 TFLOP/s f32)
+#: H100 SXM data-sheet peaks (NVIDIA: 3.35 TB/s HBM3, 67 TFLOP/s f32 on
+#: CUDA cores, 989 TFLOP/s bf16 on tensor cores)
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS = 67e12
+BF16_TC_FLOPS = 989e12
 
 MM_KEYS = ("attn/wq", "attn/wk", "attn/wv", "attn/wo",
            "mlp/w_gate", "mlp/w_up", "mlp/w_down")
@@ -153,39 +162,58 @@ def time_ms(fn, iters: int = 30, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
-def device_ms(fn, kernel: str | None, iters: int = 30) -> float:
+def device_ms(fn, kernel: str | None, iters: int = 30,
+              per_call: int = 1) -> float | None:
     """Device time per call of the CUDA kernel whose name contains
     ``kernel`` (of every kernel ``fn`` launches when ``kernel`` is None):
     ``torch.profiler``'s device time over ``iters`` back-to-back calls,
-    divided by the launches it recorded (by ``iters`` for None).  A
-    profiler warm-up step of ``iters`` calls comes first.  Unlike
-    :func:`time_ms` it leaves out the host's cost of each launch."""
+    divided by the launches it recorded over ``per_call``, the launches
+    of one call (by ``iters`` for None).  A profiler warm-up step of
+    ``iters`` calls comes first.  Unlike :func:`time_ms` it leaves out
+    the host's cost of each launch.  A window in which the profiler
+    recorded no device time is taken again once; None if it stays
+    empty (printed, never 0)."""
     import torch
     from torch.profiler import ProfilerActivity, profile, schedule
 
-    # the active step's events, taken before the profiler clears them
-    ready = []
-    with profile(activities=[ProfilerActivity.CUDA],
-                 schedule=schedule(wait=0, warmup=1, active=1),
-                 on_trace_ready=lambda p: ready.append(p.key_averages())
-                 ) as prof:
-        for _ in range(2):
-            for _ in range(iters):
-                fn()
-            torch.cuda.synchronize()
-            prof.step()
-    events = [e for e in ready[0]
-              if e.device_type == torch.autograd.DeviceType.CUDA
-              and (kernel is None or kernel in e.key)]
-    key = "self_device_time_total" if events and hasattr(
-        events[0], "self_device_time_total") else "self_cuda_time_total"
-    n = sum(e.count for e in events) if kernel is not None else iters
-    if n == 0:
-        raise AssertionError(f"the profiler recorded no launch of {kernel}")
-    if n != iters:
-        print(f"device_ms: the profiler recorded {n} of {iters} launches of "
-              f"{kernel}")
-    return sum(getattr(e, key) for e in events) / n / 1e3
+    for _ in range(2):
+        # the active step's events, taken before the profiler clears them
+        ready = []
+        with profile(activities=[ProfilerActivity.CUDA],
+                     schedule=schedule(wait=0, warmup=1, active=1),
+                     on_trace_ready=lambda p: ready.append(p.key_averages())
+                     ) as prof:
+            for _ in range(2):
+                for _ in range(iters):
+                    fn()
+                torch.cuda.synchronize()
+                prof.step()
+        events = [e for e in ready[0]
+                  if e.device_type == torch.autograd.DeviceType.CUDA
+                  and (kernel is None or kernel in e.key)]
+        key = "self_device_time_total" if events and hasattr(
+            events[0], "self_device_time_total") else "self_cuda_time_total"
+        total = sum(getattr(e, key) for e in events)
+        if total > 0:
+            break
+        print(f"device_ms: the profiler recorded no device time of "
+              f"{kernel or 'the call'}; once more")
+    else:
+        return None
+    n = sum(e.count for e in events) if kernel is not None \
+        else iters * per_call
+    if n != iters * per_call:
+        print(f"device_ms: the profiler recorded {n} of {iters * per_call} "
+              f"launches of {kernel}")
+    return total / (n / per_call) / 1e3
+
+
+def fmt_ms(ms: float | None) -> str:
+    return "not recorded" if ms is None else f"{ms:.4f}"
+
+
+def add_ms(a: float | None, b: float | None) -> float | None:
+    return None if a is None or b is None else a + b
 
 
 def bound_ms(n_bytes: float, flops: float) -> tuple[float, str]:
@@ -255,13 +283,15 @@ def check_stream_matmul(tree, rng, dev) -> dict:
             flops = 2 * m * k * n
             bms, _ = bound_ms(nbytes + tab_bytes / n_layers, flops)
             print(f"stream_matmul {key:11s} K={k:5d} N={n:5d} M={m}: "
-                  f"kernel {ms:.4f} ms (device {dms:.4f} ms, grid "
+                  f"kernel {ms:.4f} ms (device {fmt_ms(dms)} ms, grid "
                   f"{sm.matmul_launch(m, k, n)[1]})  plain {pms:.4f} ms  "
                   f"library(matmul of dequantized W) {lms:.4f} ms (device "
-                  f"{ldms:.4f} ms)  bound {bms:.5f} ms  max|err| {err:.3g}")
+                  f"{fmt_ms(ldms)} ms)  bound {bms:.5f} ms  max|err| "
+                  f"{err:.3g}")
             layer["ms"] += ms
-            layer["device_ms"] += dms
-            layer["library_device_ms"] += ldms
+            layer["device_ms"] = add_ms(layer["device_ms"], dms)
+            layer["library_device_ms"] = add_ms(
+                layer["library_device_ms"], ldms)
             layer["plain_ms"] += pms
             layer["library_ms"] += lms
             layer["bytes"] += nbytes
@@ -301,10 +331,12 @@ def check_stream_matmul(tree, rng, dev) -> dict:
     cold, cold_by = bound_ms(layer["bytes"] + layer["table_bytes"],
                              layer["flops"])
     print(f"stream_matmul, one layer's 7 matmuls at M={SERVE_M}: kernel "
-          f"{layer['ms']:.4f} ms back to back (device {layer['device_ms']:.4f}"
-          f" ms, {layer['device_ms'] / 7:.4f} ms per launch)  plain "
+          f"{layer['ms']:.4f} ms back to back (device "
+          f"{fmt_ms(layer['device_ms'])} ms, "
+          f"{fmt_ms(layer['device_ms'] and layer['device_ms'] / 7)} ms per "
+          f"launch)  plain "
           f"{layer['plain_ms']:.4f} ms  library {layer['library_ms']:.4f} "
-          f"ms (device {layer['library_device_ms']:.4f} ms)  bound "
+          f"ms (device {fmt_ms(layer['library_device_ms'])} ms)  bound "
           f"{bms:.5f} ms "
           f"({by}; {step_bytes:.0f} B with the {layer['table_bytes']} B "
           f"of tables over {n_layers} layers, {layer['flops']} f32 FLOPs); "
@@ -381,8 +413,9 @@ def check_stream_attention(cfg, rng, dev, smax: int = 256,
     print(f"stream_attention B={b} smax={smax} H={h} Hkv={hkv} hd={hd} "
           f"int{bits} pos={pos.tolist()} (grid {b}x{hkv}x{splits}, {tpb} "
           f"tokens a block, {smem} B shared): kernel {ms:.4f} ms back to "
-          f"back (device {dms:.4f} ms)  plain {pms:.4f} ms  library(sdpa on "
-          f"dense_kv) {lms:.4f} ms (device {ldms:.4f} ms)  bound "
+          f"back (device {fmt_ms(dms)} ms)  plain {pms:.4f} ms  "
+          f"library(sdpa on "
+          f"dense_kv) {lms:.4f} ms (device {fmt_ms(ldms)} ms)  bound "
           f"{bms:.6f} ms ({by}; {tab_bytes} B "
           f"of tables over {cfg.n_layers} layers); cold-L2 bound "
           f"{cold:.6f} ms ({cold_by})  max|err| {err:.3g}")
@@ -404,6 +437,40 @@ def check_long_attention(cfg, rng, dev) -> dict:
     edge = (splits // 2) * tpb - 1
     return check_stream_attention(cfg, rng, dev, smax=smax,
                                   pos=[smax - 1, edge, edge + 1, 0])
+
+
+def mistral_attention_config():
+    """The attention of mistral-large-123b (HF
+    ``mistralai/Mistral-Large-Instruct-2407``: 88 layers, d_model 12288,
+    96 query heads over 8 KV heads of head_dim 128, so 12 query heads per
+    KV head), on smollm's config class: only the attention's widths and
+    the layer count (the tables' sharing) are read."""
+    import dataclasses
+
+    from repro_torch.configs import SMOLLM_135M
+
+    return dataclasses.replace(SMOLLM_135M, name="mistral-large-123b",
+                               n_layers=88, d_model=12288, n_heads=96,
+                               n_kv_heads=8, head_dim=128)
+
+
+def check_rep12_attention(dev) -> dict:
+    """``stream_attention`` at 12 query heads per KV head (mistral-large-
+    123b's attention, B=4, int3) at smax 256 and 2048, against the plain
+    version and timed beside SDPA; at 2048 with ``pos`` at a split edge
+    and one past it."""
+    from repro_torch.kvcache import stream_attention as sa
+
+    cfg = mistral_attention_config()
+    rows = {"smax_256": check_stream_attention(
+        cfg, np.random.default_rng(12), dev, smax=256)}
+    splits, tpb, _ = sa.attention_launch(
+        4, cfg.n_kv_heads, cfg.n_heads // cfg.n_kv_heads, cfg.head_dim, 2048)
+    edge = (splits // 2) * tpb - 1
+    rows["smax_2048"] = check_stream_attention(
+        cfg, np.random.default_rng(2049), dev, smax=2048,
+        pos=[2047, edge, edge + 1, 0])
+    return rows
 
 
 def decode_check(cfg, tree, rng, dev, kv_bits: int) -> None:
@@ -809,10 +876,12 @@ def check_packed_matmul(tree, rng, dev) -> dict:
     from repro_torch.kernels import packed_matmul as pm
     from repro_torch.quant import QuantSpec, pack_codes_u32, quantize
 
+    from repro_torch.kernels.stream_matmul import matmul_launch
+
     bits, g = tree.spec.bits, tree.spec.group_size
     max_err = 0.0
-    layer = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bytes": 0,
-             "flops": 0}
+    layer = {"ms": 0.0, "device_ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0,
+             "library_device_ms": 0.0, "bytes": 0, "flops": 0}
     for key in MM_KEYS:
         pw, sc = tree.packed[key][0], tree.scales[key][0]
         k, n = sc.shape[0] * g, sc.shape[1]
@@ -836,20 +905,28 @@ def check_packed_matmul(tree, rng, dev) -> dict:
                                            bits=bits, group_size=g)
             ms = time_ms(lambda: pm.packed_matmul(x, pw, sc, bits=bits,
                                                   group_size=g))
+            dms = device_ms(lambda: pm.packed_matmul(
+                x, pw, sc, bits=bits, group_size=g), "packed_matmul_kernel")
             pms = time_ms(lambda: pm.packed_matmul_plain(
                 x, pw, sc, bits=bits, group_size=g), iters=5)
             lms = time_ms(lambda: torch.matmul(x, dense))
+            ldms = device_ms(lambda: torch.matmul(x, dense), None)
             nbytes = (x.numel() * 4 + pw.numel() * 4 + sc.numel() * 2
                       + m * n * 4)
             flops = 2 * m * k * n
             bms, _ = bound_ms(nbytes, flops)
             print(f"packed_matmul {key:11s} K={k:5d} N={n:5d} M={m}: "
-                  f"kernel {ms:.4f} ms  plain {pms:.4f} ms  "
-                  f"library(matmul of dequantized W) {lms:.4f} ms  "
-                  f"bound {bms:.5f} ms  max|err| {err:.3g}")
+                  f"kernel {ms:.4f} ms (device {fmt_ms(dms)} ms, grid "
+                  f"{matmul_launch(m, k, n)[1]})  plain {pms:.4f} ms  "
+                  f"library(matmul of dequantized W) {lms:.4f} ms (device "
+                  f"{fmt_ms(ldms)} ms)  bound {bms:.5f} ms  max|err| "
+                  f"{err:.3g}")
             layer["ms"] += ms
+            layer["device_ms"] = add_ms(layer["device_ms"], dms)
             layer["plain_ms"] += pms
             layer["library_ms"] += lms
+            layer["library_device_ms"] = add_ms(
+                layer["library_device_ms"], ldms)
             layer["bytes"] += nbytes
             layer["flops"] += flops
     # one ragged shape: N and M off the tiles
@@ -868,13 +945,20 @@ def check_packed_matmul(tree, rng, dev) -> dict:
     print(f"packed_matmul ragged int{bits} K={k} N={n} M={m}: max|err| "
           f"{err:.3g}")
     print(f"packed_matmul, one layer's 7 matmuls at M={SERVE_M}: kernel "
-          f"{layer['ms']:.4f} ms  plain {layer['plain_ms']:.4f} ms  library "
-          f"{layer['library_ms']:.4f} ms  bound {bms:.5f} ms ({by}; "
+          f"{layer['ms']:.4f} ms back to back (device "
+          f"{fmt_ms(layer['device_ms'])} ms, "
+          f"{fmt_ms(layer['device_ms'] and layer['device_ms'] / 7)} ms per "
+          f"launch)  plain {layer['plain_ms']:.4f} ms  library "
+          f"{layer['library_ms']:.4f} ms (device "
+          f"{fmt_ms(layer['library_device_ms'])} ms)  bound {bms:.5f} ms "
+          f"({by}; "
           f"{layer['bytes']} B, {layer['flops']} f32 FLOPs); bit-equal to "
           f"stream_matmul on every matrix")
     return {"max_abs_err": max_err, "ms": layer["ms"],
+            "device_ms": layer["device_ms"],
             "plain_ms": layer["plain_ms"], "bound_ms": bms, "bound_by": by,
-            "library_ms": layer["library_ms"]}
+            "library_ms": layer["library_ms"],
+            "library_device_ms": layer["library_device_ms"]}
 
 
 def check_pack_kernel(tree, dev) -> dict:
@@ -901,6 +985,8 @@ def check_pack_kernel(tree, dev) -> dict:
         raise AssertionError("pack_layout_fused differs from its plain "
                              "version or from the layer's stream")
     ms = time_ms(lambda: lp.pack_words(flat_t, src, scode))
+    dms = device_ms(lambda: lp.pack_words(flat_t, src, scode),
+                    "pack_fused_kernel")
     pms = time_ms(lambda: lp.pack_words_plain(flat_t, src, scode), iters=5)
     tab_bytes = (src.numel() + scode.numel()) * 4
     nbytes = flat_t.numel() * 4 + got.numel() * 4
@@ -908,12 +994,13 @@ def check_pack_kernel(tree, dev) -> dict:
     cold, cold_by = bound_ms(nbytes + tab_bytes, 0)
     print(f"pack_layout_fused int{tree.spec.bits} layer: {prog.n_pieces} "
           f"pieces, K={src.shape[0]}, {got.numel()} words: kernel {ms:.4f} "
-          f"ms  plain {pms:.4f} ms  library none  bound {bms:.6f} ms ({by}; "
+          f"ms (device {fmt_ms(dms)} ms)  plain {pms:.4f} ms  library none  "
+          f"bound {bms:.6f} ms ({by}; "
           f"{nbytes} B with the {tab_bytes} B of tables over "
           f"{tree.n_layers} layers); cold-L2 bound {cold:.6f} ms ({cold_by})"
           f"  max|err| 0")
-    return {"max_abs_err": 0.0, "ms": ms, "plain_ms": pms, "bound_ms": bms,
-            "bound_by": by, "library_ms": None}
+    return {"max_abs_err": 0.0, "ms": ms, "device_ms": dms, "plain_ms": pms,
+            "bound_ms": bms, "bound_by": by, "library_ms": None}
 
 
 def check_decode_kernel(trees, dev) -> dict:
@@ -936,6 +1023,8 @@ def check_decode_kernel(trees, dev) -> dict:
             raise AssertionError("decode_layout_fused differs from its "
                                  "plain version")
         ms = time_ms(lambda: ld.decode_grid(words, tab))
+        dms = device_ms(lambda: ld.decode_grid(words, tab),
+                        "decode_fused_kernel")
         pms = time_ms(lambda: ld.decode_grid_plain(words, tab), iters=5)
         tab_bytes = tab.numel() * 4
         nbytes = words.numel() * 4 + got.numel() * 4
@@ -943,12 +1032,14 @@ def check_decode_kernel(trees, dev) -> dict:
         cold, cold_by = bound_ms(nbytes + tab_bytes, 0)
         print(f"decode_layout_fused int{tree.spec.bits} layer: "
               f"{prog.c_max} x {prog.kernel.lanes} entries: kernel "
-              f"{ms:.4f} ms  plain {pms:.4f} ms  library none  bound "
+              f"{ms:.4f} ms (device {fmt_ms(dms)} ms)  plain {pms:.4f} ms  "
+              f"library none  bound "
               f"{bms:.6f} ms ({by}; {nbytes} B with the {tab_bytes} B "
               f"table over {tree.n_layers} layers); cold-L2 bound "
               f"{cold:.6f} ms ({cold_by})  max|err| 0")
-        rows.append({"max_abs_err": 0.0, "ms": ms, "plain_ms": pms,
-                     "bound_ms": bms, "bound_by": by, "library_ms": None})
+        rows.append({"max_abs_err": 0.0, "ms": ms, "device_ms": dms,
+                     "plain_ms": pms, "bound_ms": bms, "bound_by": by,
+                     "library_ms": None})
     return rows[0]
 
 
@@ -987,16 +1078,19 @@ def check_decode_slot(pl, buf, dev) -> dict:
             ld.decode_slot_plain(slab, o, w)
 
     ms = time_ms(run, iters=5, warmup=1)
+    dms = device_ms(run, "decode_slot_kernel", iters=2, per_call=len(jobs))
     pms = time_ms(run_plain, iters=2, warmup=1)
     n_out = sum(job[3].numel() for job in jobs)
     nbytes = words.numel() * 4 + offs.numel() * 4 + n_out * 4
     bms, by = bound_ms(nbytes, 0)
     print(f"decode_slot, the front door's per-slot decode: {len(jobs)} "
-          f"launches, {n_out} codes: kernel {ms:.4f} ms  plain {pms:.4f} ms"
+          f"launches, {n_out} codes: kernel {ms:.4f} ms (device {fmt_ms(dms)} "
+          f"ms, {fmt_ms(dms and dms / len(jobs) * 1e3)} us a launch)  plain "
+          f"{pms:.4f} ms"
           f"  library none  bound {bms:.6f} ms ({by}; {nbytes} B)  "
           f"max|err| 0")
-    return {"max_abs_err": 0.0, "ms": ms, "plain_ms": pms, "bound_ms": bms,
-            "bound_by": by, "library_ms": None}
+    return {"max_abs_err": 0.0, "ms": ms, "device_ms": dms, "plain_ms": pms,
+            "bound_ms": bms, "bound_by": by, "library_ms": None}
 
 
 def profile_steps(engine, prompts, label: str, n_steps: int = 4) -> None:
@@ -1074,22 +1168,63 @@ def mem_gb() -> float:
     return torch.cuda.max_memory_allocated() / 1e9
 
 
-def scan_bound(q, v, out) -> tuple[float, str, float]:
-    """Least time of one ssd_scan call: q/k/v/logw read once and the output
-    written once, against its f32 FLOPs with the masked triangle skipped
-    (2 C(C+1)/2 (dk + dv) for the scores and their product with v, 2 C dk
-    dv each for the carried state's read and update, per chunk) on CUDA
-    cores; the TF32 tensor-core figure is returned beside it."""
+def scan_bound(q, v, out) -> tuple[float, str, float, int]:
+    """Least time of one ssd_scan call as the kernel computes it (tensor
+    cores): q/k/v/logw read once and the output written once, against its
+    FLOPs with the masked triangle skipped (2 C(C+1)/2 (dk + dv) for the
+    scores and their product with v, 2 C dk dv each for the carried
+    state's read and update, per chunk of the kernel's tile C) at the bf16
+    tensor-core peak.  Returns it, what bounds it, the f32 CUDA-core
+    figure (the bound of the first design) and the tile."""
+    from repro_torch.kernels.linear_scan import scan_launch
+
     b, t, h, dk = q.shape
     dv = v.shape[-1]
-    c = 128
+    c = scan_launch(b, h, dk, dv, q.element_size())[0]
     n_chunks = -(-t // c)
     nbytes = (2 * q.numel() * q.element_size() + v.numel() * v.element_size()
               + b * t * h * 4 + out.numel() * out.element_size())
     flops = b * h * n_chunks * (c * (c + 1) * (dk + dv) + 4 * c * dk * dv)
-    bms, by = bound_ms(nbytes, flops)
-    tf32 = max(nbytes / HBM_BYTES_PER_S, flops / 495e12) * 1e3
-    return bms, by, tf32
+    tb, tt = nbytes / HBM_BYTES_PER_S, flops / BF16_TC_FLOPS
+    f32 = max(tb, flops / F32_FLOPS) * 1e3
+    return max(tb, tt) * 1e3, "bytes" if tb >= tt else "operations", f32, c
+
+
+def sweep_scan_launch(q, k, v, logw, want) -> None:
+    """Every (tile, dv slice) launch shape of ``ssd_scan`` whose block fits
+    at these inputs, each held against the plain output ``want`` and timed
+    back to back: the evidence for the shape ``scan_launch`` picks."""
+    import torch
+
+    from repro_torch.kernels import linear_scan as ls
+
+    b, _, h, dk = q.shape
+    dv = v.shape[-1]
+    orig = ls.scan_launch
+    pick = orig(b, h, dk, dv, q.element_size())
+    times = []
+    try:
+        for tile in (64, 32, 16):
+            for dvs in (64, 32, 16):
+                smem = ls.scan_smem(tile, dvs, dk, q.element_size())
+                strips = dvs // 16 * -(-dk // 64)
+                if dvs > -(-dv // 16) * 16 or strips > 8 \
+                        or smem > ls.MAX_SMEM:
+                    continue
+                ls.scan_launch = lambda *a, s=(tile, dvs, smem): s
+                got = ls.ssd_scan(q, k, v, logw)
+                torch.cuda.synchronize()
+                if not torch.allclose(got.float(), want.float(),
+                                      **SCAN_BF16_TOL):
+                    raise AssertionError(f"ssd_scan tile {tile} dv slice "
+                                         f"{dvs} differs from plain")
+                ms = time_ms(lambda: ls.ssd_scan(q, k, v, logw), iters=10)
+                times.append(f"{tile}/{dvs} {ms:.4f}")
+    finally:
+        ls.scan_launch = orig
+    print(f"ssd_scan launch shapes at B={b} H={h} dk={dk} dv={dv} "
+          f"{q.dtype} (tile/dv slice ms; picked {pick[0]}/{pick[1]}): "
+          + ", ".join(times))
 
 
 def check_ssd_scan(cfg, params, toks, rng, dev) -> dict:
@@ -1127,19 +1262,67 @@ def check_ssd_scan(cfg, params, toks, rng, dev) -> dict:
     if not (torch.allclose(g32, w32, **SCAN_F32_TOL)
             and torch.allclose(gs, ws, **SCAN_F32_TOL)):
         raise AssertionError(f"ssd_scan ragged f32: max |err| {err32:.3g}")
+    sweep_scan_launch(cq, bk, v, log_a, want)
     ms = time_ms(lambda: ls.ssd_scan(cq, bk, v, log_a), iters=20)
+    dms = device_ms(lambda: ls.ssd_scan(cq, bk, v, log_a), "ssd_scan_kernel",
+                    iters=20)
     pms = time_ms(lambda: ls.ssd_scan_plain(cq, bk, v, log_a), iters=5)
-    bms, by, tf32 = scan_bound(cq, v, got)
+    bms, by, f32, tile = scan_bound(cq, v, got)
     b, t, hh, dk = cq.shape
+    _, dvs, smem = ls.scan_launch(b, hh, dk, v.shape[-1], cq.element_size())
     print(f"ssd_scan bf16 B={b} T={t} H={hh} dk={dk} dv={v.shape[-1]} "
-          f"chunk=128 (layer-0 Mamba inputs of the prefill, {b * hh} "
-          f"blocks): kernel {ms:.4f} ms  plain {pms:.4f} ms  library none  "
-          f"bound {bms:.4f} ms ({by}; TF32 tensor-core figure {tf32:.4f} ms)"
-          f"  max|err| {err:.3g} (largest |output| "
-          f"{float(want.float().abs().max()):.4g}); ragged f32 T={t_r} with "
-          f"state0: max|err| (output, final state) {err32:.3g} (largest "
-          f"|final state| {float(ws.abs().max()):.4g})")
-    return {"max_abs_err": max(err, err32), "ms": ms, "plain_ms": pms,
+          f"(layer-0 Mamba inputs of the prefill; tile {tile}, dv slice "
+          f"{dvs}, {b * hh * -(-v.shape[-1] // dvs)} blocks of {smem} B): "
+          f"kernel {ms:.4f} ms (device {fmt_ms(dms)} ms)  plain {pms:.4f} ms  "
+          f"library none  bound {bms:.4f} ms ({by}, tensor cores; f32 "
+          f"CUDA-core figure {f32:.4f} ms)  max|err| {err:.3g} (largest "
+          f"|output| {float(want.float().abs().max()):.4g}); ragged f32 "
+          f"T={t_r} with state0: max|err| (output, final state) "
+          f"{err32:.3g} (largest |final state| {float(ws.abs().max()):.4g})")
+    return {"max_abs_err": max(err, err32), "ms": ms, "device_ms": dms,
+            "plain_ms": pms, "bound_ms": bms, "bound_by": by,
+            "library_ms": None}
+
+
+def check_wide_scan(dev) -> dict:
+    """``ssd_scan`` at Mamba-2's head widths (Dao & Gu, arXiv:2405.21060:
+    d_state 128, head_dim 64), bf16, B=2, T=1024, H=256, seeded random
+    inputs made on the card, against the plain version and timed."""
+    import torch
+
+    from repro_torch.kernels import linear_scan as ls
+
+    b, t, h, dk, dv = PREFILL_B, PREFILL_T, 256, 128, 64
+    gen = torch.Generator(device=dev).manual_seed(128)
+    q, k = (0.5 * torch.randn((b, t, h, dk), generator=gen, device=dev)
+            .to(torch.bfloat16) for _ in range(2))
+    v = (0.5 * torch.randn((b, t, h, dv), generator=gen, device=dev)) \
+        .to(torch.bfloat16)
+    logw = -torch.nn.functional.softplus(
+        0.5 * torch.randn((b, t, h), generator=gen, device=dev))
+    got = ls.ssd_scan(q, k, v, logw)
+    want = ls.ssd_scan_plain(q, k, v, logw)
+    torch.cuda.synchronize()
+    err = float((got.float() - want.float()).abs().max())
+    if not torch.isfinite(got).all() or \
+            not torch.allclose(got.float(), want.float(), **SCAN_BF16_TOL):
+        raise AssertionError(f"ssd_scan dk={dk} dv={dv}: max |err| "
+                             f"{err:.3g}")
+    ms = time_ms(lambda: ls.ssd_scan(q, k, v, logw), iters=20)
+    dms = device_ms(lambda: ls.ssd_scan(q, k, v, logw), "ssd_scan_kernel",
+                    iters=20)
+    pms = time_ms(lambda: ls.ssd_scan_plain(q, k, v, logw), iters=3)
+    bms, by, f32, tile = scan_bound(q, v, got)
+    _, dvs, smem = ls.scan_launch(b, h, dk, dv, q.element_size())
+    print(f"ssd_scan bf16 B={b} T={t} H={h} dk={dk} dv={dv} (Mamba-2's "
+          f"d_state 128 x head_dim 64; tile {tile}, dv slice {dvs}, "
+          f"{b * h * -(-dv // dvs)} blocks of {smem} B): kernel {ms:.4f} ms "
+          f"(device {fmt_ms(dms)} ms)  plain {pms:.4f} ms  library none  "
+          f"bound "
+          f"{bms:.4f} ms ({by}, tensor cores; f32 CUDA-core figure "
+          f"{f32:.4f} ms)  max|err| {err:.3g} (largest |output| "
+          f"{float(want.float().abs().max()):.4g})")
+    return {"max_abs_err": err, "ms": ms, "device_ms": dms, "plain_ms": pms,
             "bound_ms": bms, "bound_by": by, "library_ms": None}
 
 
@@ -1307,6 +1490,7 @@ def run_jamba(cfg, cuts: str, dev) -> tuple[dict, int]:
     toks = torch.from_numpy(rng.integers(
         1, cfg.vocab_size, (PREFILL_B, PREFILL_T))).to(dev)
     row = check_ssd_scan(cfg, params, toks, rng, dev)
+    row["dk128_dv64"] = check_wide_scan(dev)
     launches = prefill_jamba(cfg, params, toks)
     short = torch.from_numpy(rng.integers(1, cfg.vocab_size, (2, 16))).to(dev)
     decode_vs_prefill(cfg, params, short,
@@ -1395,6 +1579,7 @@ def run(cfg, dev) -> list[dict]:
     # its own generator: the later phases draw what they drew before
     rows["stream_attention"]["smax_2048"] = check_long_attention(
         cfg, np.random.default_rng(2048), dev)
+    rows["stream_attention"]["rep12"] = check_rep12_attention(dev)
     pl, buf, slot_launches = front_door(cfg, tree, dev)
     tree4, qts4, pack_launches = int4_pack(cfg, params, dev)
     decode_launches = stack_decode(
@@ -1419,6 +1604,10 @@ def run(cfg, dev) -> list[dict]:
                          EngineConfig(batch_size=4, max_seq=256,
                                       max_backlog=None)),
                   prompts, "int3 weights / int3 KV")
+    profile_steps(Engine(PackedAdapter(cfg, tree4, kv="packed", kv_bits=4),
+                         EngineConfig(batch_size=4, max_seq=256,
+                                      max_backlog=None)),
+                  prompts, "int4 weights / int4 KV")
 
     launches = {"stream_matmul": counts3["stream_matmul"],
                 "stream_attention": counts3["stream_attention"],

@@ -39,10 +39,16 @@
 //   memory.  Then warp r scores query head r against the tile (lane t =
 //   token t), updates its running max and sum (online softmax), and the
 //   threads contract the tile's probabilities with V out of shared memory,
-//   each thread owning (head, column) outputs in registers.
+//   each thread owning (head, column) outputs.
 // - The S partial results (m, l, o[rep][hd]) of a cluster are merged
 //   through distributed shared memory with a log-sum-exp rescale; each
 //   block of the cluster writes a share of the outputs.
+// - Any number of query heads per KV head (rep): warp r scores heads r,
+//   r + 8, r + 16, ... of the KV head against the same gathered tile, so a
+//   page is read once whatever rep is (rep 12 for mistral-large-123b and
+//   command-r-plus-104b).  The running (m, l) of each head and its partial
+//   output o[rep][hd] stay in shared memory across the tiles: each thread
+//   reads and writes only its own outputs there, once a tile.
 // Shared memory depends on rep and hd, not on smax.  Staging the next
 // tile's table rows with cp.async during this tile's arithmetic measured
 // slower on the card than gathering through registers, and was dropped.
@@ -58,10 +64,8 @@ namespace cg = cooperative_groups;
 namespace {
 
 constexpr int THREADS = 256;
+constexpr int WARPS = THREADS / 32;
 constexpr int TT = 32;        // tokens per tile (one per lane)
-constexpr int MAX_REP = 8;    // query heads per KV head served by one block
-constexpr int MAX_HD = 256;
-constexpr int MAX_OUT = MAX_REP * MAX_HD / THREADS;  // outputs per thread
 constexpr int U = 4;          // gather batches in flight per thread
 
 // dequantize, then round to bf16 and back (the reference's K/V cast)
@@ -156,10 +160,10 @@ stream_attention_kernel(const uint32_t* __restrict__ pages,
   float* qs = smem;                    // [rep][hd]
   float* ks = qs + n_out;              // [TT][hd + 1]
   float* vs = ks + TT * (hd + 1);      // [TT][hd]
-  float* pr = vs + TT * hd;            // [MAX_REP][TT] probabilities
-  float* al = pr + MAX_REP * TT;       // [MAX_REP] rescale of this tile
-  float* os = al + MAX_REP;            // [rep][hd] this block's partial o
-  float* ml = os + n_out;              // [2][MAX_REP] its m and l
+  float* pr = vs + TT * hd;            // [rep][TT] probabilities
+  float* al = pr + rep * TT;           // [rep] rescale of this tile
+  float* os = al + rep;                // [rep][hd] this block's partial o
+  float* ml = os + n_out;              // [2][rep] its running m and l
 
   const long long slot = ids64 ? ((const long long*)slot_ids)[b]
                                : ((const int32_t*)slot_ids)[b];
@@ -177,13 +181,14 @@ stream_attention_kernel(const uint32_t* __restrict__ pages,
       ((reinterpret_cast<uintptr_t>(k_tab) |
         reinterpret_cast<uintptr_t>(v_tab)) & 15u) == 0;
 
-  for (int i = threadIdx.x; i < n_out; i += THREADS)
+  for (int i = threadIdx.x; i < n_out; i += THREADS) {
     qs[i] = __bfloat162float(q[((long long)b * H + g * rep) * hd + i]);
-  float m_run = __int_as_float(0xff800000);  // -inf
-  float l_run = 0.f;
-  float o[MAX_OUT];
-#pragma unroll
-  for (int j = 0; j < MAX_OUT; ++j) o[j] = 0.f;
+    os[i] = 0.f;
+  }
+  for (int r = threadIdx.x; r < rep; r += THREADS) {
+    ml[r] = __int_as_float(0xff800000);  // -inf
+    ml[rep + r] = 0.f;
+  }
 
   for (int t0 = t_begin; t0 < t_end; t0 += TT) {
     const int nt = min(TT, t_end - t0);
@@ -195,11 +200,13 @@ stream_attention_kernel(const uint32_t* __restrict__ pages,
       gather_kv<1>(w, slot_words, k_tab, ks_tab, v_tab, vs_tab, t0, nt, Hkv,
                    g, hd, bits, mask, bias, ks, vs);
     __syncthreads();
-    // scores and the online softmax: warp r = query head r, lane = token
-    if (warp < rep) {
+    // scores and the online softmax: warp w takes query heads w, w + 8,
+    // ... of the group (lane = token); each head's running m and l live in
+    // ml, read and written by its warp only
+    for (int r = warp; r < rep; r += WARPS) {
       float s = __int_as_float(0xff800000);
       if (lane < nt) {
-        const float* qr = qs + warp * hd;
+        const float* qr = qs + r * hd;
         const float* kt = ks + lane * (hd + 1);
         float acc = 0.f;
         for (int d = 0; d < hd; ++d) acc = fmaf(qr[d], kt[d], acc);
@@ -208,43 +215,35 @@ stream_attention_kernel(const uint32_t* __restrict__ pages,
       float mt = s;
       for (int o2 = 16; o2 > 0; o2 >>= 1)
         mt = fmaxf(mt, __shfl_xor_sync(0xffffffffu, mt, o2));
+      const float m_run = ml[r];
       const float m_new = fmaxf(m_run, mt);
       const float p = lane < nt ? expf(s - m_new) : 0.f;
       float ps = p;
       for (int o2 = 16; o2 > 0; o2 >>= 1)
         ps += __shfl_xor_sync(0xffffffffu, ps, o2);
       const float alpha = expf(m_run - m_new);
-      l_run = l_run * alpha + ps;
-      m_run = m_new;
-      pr[warp * TT + lane] = p;
-      if (lane == 0) al[warp] = alpha;
+      __syncwarp();  // every lane has read ml[r] before lane 0 rewrites it
+      pr[r * TT + lane] = p;
+      if (lane == 0) {
+        al[r] = alpha;
+        ml[r] = m_new;
+        ml[rep + r] = ml[rep + r] * alpha + ps;
+      }
     }
     __syncthreads();
-    // V contraction: each thread owns outputs i = tid + j * THREADS
-#pragma unroll
-    for (int j = 0; j < MAX_OUT; ++j) {
-      const int i = threadIdx.x + j * THREADS;
-      if (i < n_out) {
-        const int r = i / hd;
-        const int d = i - r * hd;
-        const float* p = pr + r * TT;
-        float acc = o[j] * al[r];
-        for (int t = 0; t < nt; ++t) acc = fmaf(p[t], vs[t * hd + d], acc);
-        o[j] = acc;
-      }
+    // V contraction: each thread owns outputs i = tid + j * THREADS of os
+    for (int i = threadIdx.x; i < n_out; i += THREADS) {
+      const int r = i / hd;
+      const int d = i - r * hd;
+      const float* p = pr + r * TT;
+      float acc = os[i] * al[r];
+      for (int t = 0; t < nt; ++t) acc = fmaf(p[t], vs[t * hd + d], acc);
+      os[i] = acc;
     }
   }
 
-  // publish this block's partial result, then merge across the cluster
-#pragma unroll
-  for (int j = 0; j < MAX_OUT; ++j) {
-    const int i = threadIdx.x + j * THREADS;
-    if (i < n_out) os[i] = o[j];
-  }
-  if (warp < rep && lane == 0) {
-    ml[warp] = m_run;
-    ml[MAX_REP + warp] = l_run;
-  }
+  // this block's partial result (os, ml) is in place: merge across the
+  // cluster
   cluster.sync();
   const int share = (n_out + S - 1) / S;
   const int i_end = min(n_out, (split + 1) * share);
@@ -253,12 +252,12 @@ stream_attention_kernel(const uint32_t* __restrict__ pages,
     float mx = __int_as_float(0xff800000);
     for (int s = 0; s < S; ++s) {
       const float* rml = cluster.map_shared_rank(ml, s);
-      if (rml[MAX_REP + r] > 0.f) mx = fmaxf(mx, rml[r]);
+      if (rml[rep + r] > 0.f) mx = fmaxf(mx, rml[r]);
     }
     float num = 0.f, den = 0.f;
     for (int s = 0; s < S; ++s) {
       const float* rml = cluster.map_shared_rank(ml, s);
-      const float l = rml[MAX_REP + r];
+      const float l = rml[rep + r];
       if (l > 0.f) {
         const float c = expf(rml[r] - mx);
         num = fmaf(c, cluster.map_shared_rank(os, s)[i], num);

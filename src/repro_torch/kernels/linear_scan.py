@@ -20,7 +20,9 @@ it takes any T: the plain version pads T to a multiple of ``chunk`` with
 zero q/k/v and zero ``logw`` (decay 1 leaves the state exact) and slices
 the output back; the kernel masks the ragged rows the same way without a
 copy.  With ``state0=None`` and T a multiple of ``chunk`` the output is
-the reference ``ssd_scan``'s.
+the reference ``ssd_scan``'s.  The function does not depend on
+``chunk``: the plain version takes it as given, and the kernel walks T in
+its own tile (:func:`scan_launch`), so any ``chunk`` >= 1 is taken.
 """
 from __future__ import annotations
 
@@ -31,15 +33,71 @@ import torch
 from . import build
 from .ref import ssd_scan_plain
 
-__all__ = ["MAX_CHUNK", "MAX_DIM", "launches", "ssd_scan", "ssd_scan_plain"]
+__all__ = ["MAX_DIM", "launches", "scan_launch", "ssd_scan",
+           "ssd_scan_plain"]
 
-#: the kernel's limits: chunk length (its C x C score tile lives in shared
-#: memory) and head widths dk, dv
-MAX_CHUNK = 128
-MAX_DIM = 64
+#: the widest q/k (dk) and v (dv) head the kernel takes
+MAX_DIM = 256
+#: dynamic shared memory one block may use on an H100
+MAX_SMEM = 227 * 1024
+#: the kernel's row pad of its shared tiles (PAD in the .cu)
+_PAD = 8
+#: warps of a kernel block (WARPS in the .cu)
+_WARPS = 8
 
 #: kernel launches made by :func:`ssd_scan`
 launches = 0
+
+#: the C launch function's argument types
+_ARGTYPES = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 7
+             + [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p])
+
+
+def _round16(x: int) -> int:
+    return -(-x // 16) * 16
+
+
+def scan_smem(tile: int, dvs: int, dk: int, elem_bytes: int) -> int:
+    """Shared memory of one kernel block in bytes (``smem_bytes`` in the
+    .cu).  In the inputs' dtype: two stages of the copied q, k ``(tile,
+    dk)`` and v ``(tile, dvs)`` tiles, and the block's ``v^T``.  In bf16
+    hi/lo pairs: ``(k W)^T``, the score tile and the block's slice of
+    ``S^T``, one per chunk parity (its f32 value lives in registers); two
+    stages of logw and three f32 vectors of ``tile``.  Rows padded to a
+    multiple of 16, plus 8."""
+    dkp = _round16(dk)
+    lq, lc, lvn = dkp + _PAD, tile + _PAD, dvs + _PAD
+    return (elem_bytes * (2 * tile * (2 * lq + lvn) + dvs * lc)
+            + 4 * (dkp * lc + tile * lc + 2 * dvs * lq + 5 * tile))
+
+
+def scan_launch(b: int, h: int, dk: int, dv: int,
+                elem_bytes: int) -> tuple[int, int, int]:
+    """Launch shape of the ``ssd_scan`` kernel: ``(tile, dvs, smem)``.
+
+    One block of 8 warps per (batch, head, slice of ``dvs`` columns of
+    v), walking the sequence in chunks of ``tile`` tokens (the function
+    does not depend on the chunk, so this need not be the caller's).  A
+    warp keeps one 16 x 64 strip of the slice's state in registers, so a
+    slice has at most 8 strips.  The widest slice of 64, 32, 16 (at most
+    ``dv`` rounded up to 16) that fits, at tile 32, or at tile 64 first
+    when dk > 64 (``chip_smoke.py``'s sweep on an H100: dk=dv=64 runs
+    fastest at 32 / 64, dk=128 at 64 / 64), then tile 16.  Raises for
+    what the kernel refuses."""
+    if b < 1 or h < 1:
+        raise ValueError(f"empty launch: B={b} H={h}")
+    if not (1 <= dk <= MAX_DIM and 1 <= dv <= MAX_DIM):
+        raise ValueError(f"dk={dk} and dv={dv} must be in [1, {MAX_DIM}]")
+    dvp = _round16(dv)
+    for tile in ((64, 32, 16) if dk > 64 else (32, 16)):
+        for dvs in (64, 32, 16):
+            strips = dvs // 16 * -(-_round16(dk) // 64)
+            if dvs > dvp or strips > _WARPS:
+                continue
+            smem = scan_smem(tile, dvs, dk, elem_bytes)
+            if smem <= MAX_SMEM:
+                return tile, dvs, smem
+    raise ValueError(f"dk={dk} dv={dv}: no tile fits {MAX_SMEM} B")
 
 
 def _check(q, k, v, logw, chunk, state0):
@@ -51,8 +109,8 @@ def _check(q, k, v, logw, chunk, state0):
             f"{tuple(logw.shape)}")
     b, _, h, dk = q.shape
     dv = v.shape[-1]
-    if not 1 <= chunk <= MAX_CHUNK:
-        raise ValueError(f"chunk must be in [1, {MAX_CHUNK}]; got {chunk}")
+    if chunk < 1:
+        raise ValueError(f"chunk must be at least 1; got {chunk}")
     if not (1 <= dk <= MAX_DIM and 1 <= dv <= MAX_DIM):
         raise ValueError(f"dk={dk} and dv={dv} must be in [1, {MAX_DIM}]")
     if k.dtype != q.dtype or v.dtype != q.dtype \
@@ -97,19 +155,16 @@ def ssd_scan(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if state0 is not None:
         state0 = state0.contiguous()
     if b * t * h:
+        tile, dvs, _ = scan_launch(b, h, dk, dv, q.element_size())
         strides = (ctypes.c_longlong * 12)(
             *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
             *logw.stride())
-        fn = build.function("ssd_scan", "ssd_scan",
-                            [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6
-                            + [ctypes.c_void_p, ctypes.c_int,
-                               ctypes.c_void_p])
+        fn = build.function("ssd_scan", "ssd_scan", _ARGTYPES)
         rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), logw.data_ptr(),
                 None if state0 is None else state0.data_ptr(),
                 out.data_ptr(), None if final is None else final.data_ptr(),
-                b, t, h, dk, dv, chunk, ctypes.addressof(strides),
-                int(q.dtype == torch.bfloat16),
-                torch.cuda.current_stream(q.device).cuda_stream)
+                b, t, h, dk, dv, tile, dvs, ctypes.addressof(strides),
+                int(q.dtype == torch.bfloat16), build.stream_handle(q.device))
         build.check_launch("ssd_scan", rc)
         launches += 1
     elif final is not None and state0 is not None:

@@ -16,6 +16,9 @@ full width it refuses all four matrix shapes); the function is defined
 for any K divisible by the group size and by ``32 / bits``, and so is
 this kernel.  It sums in ``stream_matmul.cu``'s f32 order, so on one
 tree the lane-packed and the stream-direct paths give the same bits.
+Like ``stream_matmul`` it splits K into 8 ranges, one block each, and
+takes its column tile from :func:`~repro_torch.kernels.stream_matmul.
+matmul_launch`, so that the grid covers the card's SMs.
 """
 from __future__ import annotations
 
@@ -25,6 +28,7 @@ import torch
 
 from . import build
 from .ref import packed_matmul_ref as packed_matmul_plain
+from .stream_matmul import matmul_launch
 
 __all__ = ["SUPPORTED_BITS", "launches", "packed_matmul",
            "packed_matmul_plain"]
@@ -35,6 +39,9 @@ SUPPORTED_BITS = (2, 4, 8)
 
 #: kernel launches made by :func:`packed_matmul`
 launches = 0
+
+#: the C launch function's argument types
+_ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_void_p])
 
 
 def packed_matmul(x: torch.Tensor, w_packed: torch.Tensor,
@@ -63,27 +70,33 @@ def packed_matmul(x: torch.Tensor, w_packed: torch.Tensor,
     if w_packed.dtype != torch.int32 or scales.dtype != torch.bfloat16:
         raise ValueError("w_packed must be int32 (u32 bits) and scales "
                          "bfloat16")
-    devs = {t.device for t in (x, w_packed, scales)}
-    if len(devs) != 1:
-        raise ValueError(f"operands on different devices: {devs}")
-    if x.device.type == "cpu":
-        return packed_matmul_plain(x, w_packed, scales, bits=bits,
-                                   group_size=group_size)
-    if x.device.type != "cuda":
+    # get_device() (an int) is much cheaper than building torch.device
+    # objects, and this runs 210 times per decode step
+    if not (x.is_cuda == w_packed.is_cuda == scales.is_cuda
+            and x.is_cpu == w_packed.is_cpu == scales.is_cpu
+            and x.get_device() == w_packed.get_device()
+            == scales.get_device()):
+        raise ValueError("operands on different devices: "
+                         f"{[t.device for t in (x, w_packed, scales)]}")
+    if not x.is_cuda:
+        if x.is_cpu:
+            return packed_matmul_plain(x, w_packed, scales, bits=bits,
+                                       group_size=group_size)
         raise ValueError(f"packed_matmul runs on cpu or cuda, not {x.device}")
     out = torch.empty((m, n), dtype=torch.float32, device=x.device)
     if m == 0 or n == 0:
         return out
-    xf = x.to(torch.float32).contiguous()
-    w_packed, scales = w_packed.contiguous(), scales.contiguous()
-    fn = build.function("packed_matmul", "packed_matmul_f32",
-                        [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                         ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
-                         ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                         ctypes.c_void_p])
+    xf = x if x.dtype == torch.float32 and x.is_contiguous() \
+        else x.to(torch.float32).contiguous()
+    if not w_packed.is_contiguous():
+        w_packed = w_packed.contiguous()
+    if not scales.is_contiguous():
+        scales = scales.contiguous()
+    bn, _ = matmul_launch(m, k, n, build.device_sms(x.device))
+    fn = build.function("packed_matmul", "packed_matmul_f32", _ARGTYPES)
     rc = fn(xf.data_ptr(), w_packed.data_ptr(), scales.data_ptr(),
-            out.data_ptr(), m, k, n, bits, group_size,
-            torch.cuda.current_stream(x.device).cuda_stream)
+            out.data_ptr(), m, k, n, bits, group_size, bn,
+            build.stream_handle(x.device))
     build.check_launch("packed_matmul", rc)
     launches += 1
     return out

@@ -37,9 +37,7 @@ __all__ = ["attention_launch", "launches", "stream_attention",
 #: kernel launches made by :func:`stream_attention`
 launches = 0
 
-#: query heads per KV head one kernel block serves (MAX_REP in the .cu)
-MAX_REP = 8
-#: the widest head the kernel takes (MAX_HD in the .cu)
+#: the widest head the kernel takes
 MAX_HD = 256
 #: tokens per tile of a block (TT in the .cu: one per lane)
 TILE_TOKENS = 32
@@ -63,13 +61,15 @@ def attention_launch(b: int, hkv: int, rep: int, hd: int, smax: int,
     per (slot, KV head); block ``s`` owns tokens ``[s * tokens_per_block,
     (s + 1) * tokens_per_block)``.  ``splits`` is the fewest that bring
     the grid to ``sms`` blocks, capped at 8 and at the number of 32-token
-    tiles in ``smax``.  Shared memory (the carve-up in the .cu, in f32 words):
-    q and the partial output, ``rep * hd`` each; one tile of K (rows
-    padded to ``hd + 1``) and of V; probabilities, rescales, m and l.
-    Raises for what the kernel refuses."""
-    if not 1 <= rep <= MAX_REP:
+    tiles in ``smax``.  Shared memory (the carve-up in the .cu, in f32
+    words): q and the partial output, ``rep * hd`` each; one tile of K
+    (rows padded to ``hd + 1``) and of V; per query head the tile's
+    probabilities, its rescale, m and l.  Any ``rep`` whose block fits
+    ``MAX_SMEM`` is taken (up to 171 at hd 128, 76 at hd 256).  Raises
+    for what the kernel refuses."""
+    if rep < 1:
         raise ValueError(f"{rep} query heads per KV head: the kernel takes "
-                         f"1..{MAX_REP}")
+                         f"at least 1")
     if not 1 <= hd <= MAX_HD:
         raise ValueError(f"head_dim {hd}: the kernel takes 1..{MAX_HD}")
     if b < 1 or hkv < 1 or smax < 1:
@@ -77,7 +77,11 @@ def attention_launch(b: int, hkv: int, rep: int, hd: int, smax: int,
     tiles = -(-smax // TILE_TOKENS)
     splits = max(1, min(MAX_SPLITS, tiles, -(-sms // (b * hkv))))
     words = (2 * rep * hd + TILE_TOKENS * (2 * hd + 1)
-             + MAX_REP * (TILE_TOKENS + 3))
+             + rep * (TILE_TOKENS + 3))
+    if 4 * words > MAX_SMEM:
+        raise ValueError(f"{rep} query heads per KV head at head_dim {hd} "
+                         f"need {4 * words} B of shared memory a block; an "
+                         f"H100 block has {MAX_SMEM}")
     return splits, -(-smax // splits), 4 * words
 
 

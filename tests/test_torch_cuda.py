@@ -79,7 +79,8 @@ def test_stream_matmul_kernel_matches_plain(cuda, bits, m, k, n):
 
 @pytest.mark.parametrize("bits,heads,hd,smax", [(3, (9, 3), 64, 256),
                                                 (4, (4, 4), 5, 12),
-                                                (8, (6, 2), 4, 40)])
+                                                (8, (6, 2), 4, 40),
+                                                (3, (96, 8), 128, 64)])
 def test_stream_attention_kernel_matches_plain(cuda, bits, heads, hd, smax):
     from repro_torch.configs import SMOLLM_135M
     from repro_torch.kvcache import PackedKVCache
@@ -111,9 +112,14 @@ def test_stream_attention_kernel_matches_plain(cuda, bits, heads, hd, smax):
     assert (got.float() - want.float()).abs().max().item() <= ATT_ATOL
 
 
-@pytest.mark.parametrize("bits,m,k,n", [(4, 8, 576, 576), (4, 8, 1536, 576),
-                                        (2, 3, 128, 33), (8, 9, 96, 200)])
-def test_packed_matmul_kernel_matches_plain(cuda, bits, m, k, n):
+@pytest.mark.parametrize("bits,m,k,n,g", [
+    (4, 8, 576, 576, 32), (4, 8, 1536, 576, 32), (2, 3, 128, 33, 32),
+    (8, 9, 96, 200, 32),
+    # ragged K: a last chunk of 16 rows (2 a range), of 24 (3 a range),
+    # of 12 (ranges 6 and 7 empty); ragged N
+    (2, 5, 272, 33, 16), (4, 8, 24, 130, 8), (8, 1, 12, 1, 4),
+    (8, 3, 1040, 77, 16)])
+def test_packed_matmul_kernel_matches_plain(cuda, bits, m, k, n, g):
     """Within the stream_matmul tolerance of the plain version, and bit
     for bit equal to stream_matmul over the same codes in an Iris stream
     (both kernels sum in one order)."""
@@ -123,20 +129,45 @@ def test_packed_matmul_kernel_matches_plain(cuda, bits, m, k, n):
 
     rng = np.random.default_rng(k + n)
     w = torch.from_numpy(rng.standard_normal((k, n), np.float32))
-    qt = quantize(w, QuantSpec(bits=bits, group_size=32))
+    qt = quantize(w, QuantSpec(bits=bits, group_size=g))
     pw = pack_codes_u32(qt.codes, bits).to(cuda)
     sc = qt.scales.to(cuda)
     x = torch.from_numpy(rng.standard_normal((m, k), np.float32)).to(cuda)
     before = pm.launches
-    got = pm.packed_matmul(x, pw, sc, bits=bits, group_size=32)
-    want = pm.packed_matmul_plain(x, pw, sc, bits=bits, group_size=32)
+    got = pm.packed_matmul(x, pw, sc, bits=bits, group_size=g)
+    want = pm.packed_matmul_plain(x, pw, sc, bits=bits, group_size=g)
     torch.cuda.synchronize()
     assert pm.launches == before + 1
     torch.testing.assert_close(got, want, rtol=MM_RTOL, atol=MM_ATOL)
-    words, w_tab, s_tab = _stream_case(bits, k, n, 32, cuda, seed=k + n)
+    words, w_tab, s_tab = _stream_case(bits, k, n, g, cuda, seed=k + n)
     assert torch.equal(
         got, sm.stream_matmul(x, words, w_tab, s_tab, bits=bits,
-                              group_size=32))
+                              group_size=g))
+
+
+#: (K, N) of smollm-135m's seven matrices: wq, wk, wv, wo, gate, up, down
+SMOLLM_MATS = [(576, 576), (576, 192), (576, 192), (576, 576),
+               (576, 1536), (576, 1536), (1536, 576)]
+
+
+@pytest.mark.parametrize("k,n", SMOLLM_MATS)
+def test_packed_matmul_kernel_smollm_shapes(cuda, k, n):
+    """int4 at smollm's seven shapes and M = 1, 4, 8 (the cluster split's
+    grids of 144-384 blocks) against the plain version."""
+    from repro_torch.kernels import packed_matmul as pm
+    from repro_torch.quant import QuantSpec, pack_codes_u32, quantize
+
+    rng = np.random.default_rng(k * n)
+    qt = quantize(torch.from_numpy(rng.standard_normal((k, n), np.float32)),
+                  QuantSpec(bits=4, group_size=32))
+    pw, sc = pack_codes_u32(qt.codes, 4).to(cuda), qt.scales.to(cuda)
+    for m in (1, 4, 8):
+        x = torch.from_numpy(rng.standard_normal((m, k), np.float32)) \
+            .to(cuda)
+        got = pm.packed_matmul(x, pw, sc, bits=4, group_size=32)
+        want = pm.packed_matmul_plain(x, pw, sc, bits=4, group_size=32)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(got, want, rtol=MM_RTOL, atol=MM_ATOL)
 
 
 def _layout_case(specs, m, seed=0):
@@ -227,6 +258,15 @@ def _scan_case(b, t, h, dk, dv, dtype, dev, seed=0, steep=False):
     (1, 1000, 3, 64, 64, 128, "float32", True),   # ragged T
     (2, 77, 3, 13, 30, 20, "float32", True),      # odd widths and chunk
     (2, 256, 4, 64, 64, 128, "bfloat16", False),  # the served dtype
+    # wide heads and long chunks: Mamba-2's d_state 128 x head_dim 64,
+    # 128 x 128 and 256 x 256 heads, ragged dv, chunk 256
+    (2, 512, 4, 128, 64, 256, "float32", True),
+    (2, 512, 4, 128, 64, 256, "bfloat16", True),
+    (1, 300, 3, 128, 128, 256, "float32", True),
+    (1, 256, 2, 128, 128, 128, "bfloat16", False),
+    (1, 256, 2, 256, 256, 256, "float32", True),
+    (1, 256, 2, 256, 256, 64, "bfloat16", True),
+    (1, 200, 2, 256, 100, 256, "bfloat16", False),
 ])
 def test_ssd_scan_kernel_matches_plain(cuda, b, t, h, dk, dv, chunk, dtype,
                                        state):
@@ -251,13 +291,14 @@ def test_ssd_scan_kernel_matches_plain(cuda, b, t, h, dk, dv, chunk, dtype,
                                    atol=1e-3)
 
 
-def test_ssd_scan_kernel_strided_views_and_steep_decay(cuda):
+@pytest.mark.parametrize("n", [16, 128])
+def test_ssd_scan_kernel_strided_views_and_steep_decay(cuda, n):
     """q/k as views into one projection (the Mamba layer's layout), and a
     decay of e^-60 per token: the masked triangle takes no overflowing
     exponential, so the output is finite and each token sees itself."""
     from repro_torch.kernels import linear_scan as ls
 
-    b, t, h, n = 2, 192, 4, 16
+    b, t, h = 2, 192, 4
     rng = np.random.default_rng(3)
     bc = torch.from_numpy(rng.standard_normal((b, t, 2 * h * n),
                                               np.float32)).to(cuda)
@@ -303,7 +344,11 @@ def _attention_cache(bits, h, hkv, hd, smax, dev, seed=0, n_slots=4):
 #: loads)
 ATT_SPLIT_CASES = [(3, 9, 3, 64, 256), (3, 9, 3, 64, 296),
                    (4, 8, 8, 64, 104), (3, 8, 1, 64, 200),
-                   (3, 4, 2, 128, 160), (8, 6, 2, 5, 72)]
+                   (3, 4, 2, 128, 160), (8, 6, 2, 5, 72),
+                   # rep 12 (mistral-large-123b's 96 / 8 heads), rep 9 and
+                   # rep 20: two and three groups of 8 query heads a block
+                   (3, 24, 2, 128, 256), (4, 12, 1, 128, 136),
+                   (3, 18, 2, 64, 96), (8, 20, 1, 5, 64)]
 
 
 @pytest.mark.parametrize("bits,h,hkv,hd,smax", ATT_SPLIT_CASES)

@@ -143,7 +143,10 @@ def test_append_overwrite_and_reset_in_place():
 
 
 @pytest.mark.parametrize("bits,heads,hd", [(3, (4, 2), 6), (4, (4, 4), 5),
-                                           (8, (6, 2), 4), (3, (9, 3), 64)])
+                                           (8, (6, 2), 4), (3, (9, 3), 64),
+                                           # rep 12: mistral-large-123b's
+                                           # and command-r-plus-104b's GQA
+                                           (3, (24, 2), 8), (4, (12, 1), 16)])
 def test_stream_attention_plain_matches_pallas_interpret(bits, heads, hd):
     h, _ = heads
     ref, port = _pair(bits, hd, heads=heads, max_seq=12)

@@ -1,19 +1,23 @@
 """Launch shapes of the port's split kernels, on the CPU.
 
-``attention_launch`` and ``matmul_launch`` are the plain Python functions
-that pick the grids of ``csrc/stream_attention.cu`` and
-``csrc/stream_matmul.cu``; the kernels themselves run only on a card
-(``tests/test_torch_cuda.py``).  Here: the splits cover the sequence,
-shared memory stays within an H100 block's 227 KB whatever the context,
-the grids cover the card's 132 SMs at smollm-135m's shapes, the launch
-functions refuse what the kernels refuse, and on CPU tensors the
-wrappers take the plain versions without launching.
+``attention_launch``, ``matmul_launch`` and ``scan_launch`` are the plain
+Python functions that pick the grids of ``csrc/stream_attention.cu``,
+``csrc/stream_matmul.cu`` and ``csrc/packed_matmul.cu`` (which share
+``matmul_launch``) and ``csrc/ssd_scan.cu``; the kernels themselves run
+only on a card (``tests/test_torch_cuda.py``).  Here: the splits cover
+the sequence, shared memory stays within an H100 block's 227 KB whatever
+the context and the number of query heads per KV head, the grids cover
+the card's 132 SMs at smollm-135m's shapes, the launch functions refuse
+what the kernels refuse, and on CPU tensors the wrappers take the plain
+versions without launching.
 """
 import numpy as np
 import pytest
 import torch
 
 from repro_torch.configs import SMOLLM_135M
+from repro_torch.kernels import linear_scan as ls
+from repro_torch.kernels import packed_matmul as pm
 from repro_torch.kernels import stream_matmul as sm
 from repro_torch.kvcache import stream_attention as sa
 
@@ -27,17 +31,20 @@ SMAXES = [1, 7, 31, 32, 33, 100, 256, 296, 2048, 32768]
 
 
 @pytest.mark.parametrize("smax", SMAXES)
-@pytest.mark.parametrize("b,hkv", [(1, 1), (4, 3), (3, 8), (64, 3)])
-def test_attention_splits_cover_smax(b, hkv, smax):
-    splits, tpb, _ = sa.attention_launch(b, hkv, 3, 64, smax)
+@pytest.mark.parametrize("b,hkv,rep,hd", [
+    (1, 1, 3, 64), (4, 3, 3, 64), (3, 8, 3, 64), (64, 3, 3, 64),
+    # rep 9 and rep 12 (mistral-large-123b's 96 heads over 8 KV heads)
+    (4, 8, 9, 128), (4, 8, 12, 128)])
+def test_attention_splits_cover_smax(b, hkv, rep, hd, smax):
+    splits, tpb, _ = sa.attention_launch(b, hkv, rep, hd, smax)
     assert 1 <= splits <= sa.MAX_SPLITS
     assert splits * tpb >= smax > (splits - 1) * tpb   # no empty split
 
 
 @pytest.mark.parametrize("hd", [1, 5, 64, 128, 256])
-@pytest.mark.parametrize("rep", [1, 3, 8])
+@pytest.mark.parametrize("rep", [1, 3, 8, 9, 12])
 def test_attention_shared_memory_bounded_and_independent_of_smax(rep, hd):
-    sizes = {sa.attention_launch(4, 3, rep, hd, smax)[2] for smax in SMAXES}
+    sizes = {sa.attention_launch(4, 8, rep, hd, smax)[2] for smax in SMAXES}
     assert len(sizes) == 1
     assert sizes.pop() <= sa.MAX_SMEM
 
@@ -54,12 +61,20 @@ def test_attention_grid_splits_the_sequence_at_smollm_shapes():
         assert b * hkv * splits >= SMS
 
 
-@pytest.mark.parametrize("args", [(4, 3, 9, 64, 256), (4, 3, 0, 64, 256),
+@pytest.mark.parametrize("args", [(4, 8, 12, 257, 256), (4, 3, 0, 64, 256),
                                   (4, 3, 3, 257, 256), (4, 3, 3, 0, 256),
-                                  (0, 3, 3, 64, 256), (4, 3, 3, 64, 0)])
+                                  (0, 3, 3, 64, 256), (4, 3, 3, 64, 0),
+                                  (4, 8, 77, 256, 256), (4, 8, -1, 64, 256)])
 def test_attention_launch_refuses_what_the_kernel_refuses(args):
     with pytest.raises(ValueError):
         sa.attention_launch(*args)
+
+
+def test_attention_launch_takes_any_rep_that_fits_a_block():
+    """The block loops over the query heads of a KV head in groups of 8
+    warps, so rep is bounded only by shared memory: 76 at hd 256."""
+    assert sa.attention_launch(4, 8, 76, 256, 2048)[2] <= sa.MAX_SMEM
+    assert sa.attention_launch(4, 8, 12, 128, 2048)[:2] == (5, 410)
 
 
 @pytest.mark.parametrize("k,n", SMOLLM_MATS)
@@ -70,6 +85,21 @@ def test_matmul_grid_covers_the_sms_at_smollm_shapes(m, k, n):
     assert grid[1] == sm.K_RANGES and grid[2] == 1
     assert grid[0] * bn >= n > (grid[0] - 1) * bn
     assert grid[0] * grid[1] * grid[2] >= SMS
+
+
+#: (K, N) of smollm-135m's seven matrices as int4 lane-packed views:
+#: (K / 8 words, N)
+@pytest.mark.parametrize("k,n", SMOLLM_MATS)
+@pytest.mark.parametrize("m", range(1, 9))
+def test_packed_matmul_grid_covers_the_sms_at_smollm_shapes(m, k, n):
+    """``packed_matmul`` takes its grid from ``matmul_launch``: 144-384
+    blocks of the cluster split over K at smollm's int4 shapes."""
+    assert pm.matmul_launch is sm.matmul_launch
+    bn, grid = pm.matmul_launch(m, k, n)
+    assert k % (32 // 4) == 0                # whole words of int4 codes
+    assert grid[1] == sm.K_RANGES and grid[2] == 1
+    assert grid[0] * bn >= n > (grid[0] - 1) * bn
+    assert SMS <= grid[0] * grid[1] * grid[2] <= 384
 
 
 def test_matmul_launch_prefers_wide_tiles_and_refuses_bad_shapes():
@@ -103,3 +133,26 @@ def test_attention_wrapper_takes_plain_version_on_cpu_without_launching():
     got = sa.stream_attention(*args, bits=3)
     assert torch.equal(got, sa.stream_attention_plain(*args, bits=3))
     assert sa.launches == before
+
+
+@pytest.mark.parametrize("dk,dv", [(1, 1), (13, 30), (64, 64), (128, 64),
+                                   (128, 128), (256, 64), (256, 256)])
+@pytest.mark.parametrize("elem_bytes", [2, 4])
+def test_scan_launch_fits_a_block(dk, dv, elem_bytes):
+    """Every head width up to 256 gets a tile and a dv slice whose block
+    fits an H100's 227 KB, with at most one 16 x 64 strip of the state per
+    warp (8 warps)."""
+    tile, dvs, smem = ls.scan_launch(2, 256, dk, dv, elem_bytes)
+    assert tile in (16, 32, 64) and dvs in (16, 32, 64)
+    assert dvs <= -(-dv // 16) * 16
+    assert dvs // 16 * -(-dk // 64) <= 8
+    assert smem == ls.scan_smem(tile, dvs, dk, elem_bytes) <= ls.MAX_SMEM
+
+
+def test_scan_launch_refuses_what_the_kernel_refuses():
+    assert ls.scan_launch(2, 256, 64, 64, 2)[:2] == (32, 64)   # jamba
+    assert ls.scan_launch(2, 256, 128, 64, 2)[:2] == (64, 64)  # Mamba-2
+    for args in ((2, 256, 0, 64), (2, 256, 257, 64), (2, 256, 64, 257),
+                 (0, 256, 64, 64), (2, 0, 64, 64)):
+        with pytest.raises(ValueError):
+            ls.scan_launch(*args, 2)

@@ -73,6 +73,25 @@ def test_ssd_scan_matches_reference_kernel(shape):
     np.testing.assert_allclose(got.numpy(), want, **SCAN_TOL)
 
 
+@pytest.mark.parametrize("shape", [
+    # (B, T, H, dk, dv, chunk): Mamba-2's d_state 128 and head_dim 64
+    # (Dao & Gu, arXiv:2405.21060), square 128-wide heads, and chunks of
+    # 256, all beyond the first CUDA kernel's limits (dk, dv <= 64,
+    # chunk <= 128)
+    (1, 256, 2, 128, 64, 256),
+    (1, 512, 2, 128, 128, 256),
+    (2, 256, 1, 128, 64, 128),
+])
+def test_ssd_scan_wide_heads_match_reference_kernel(shape):
+    b, t, h, dk, dv, chunk = shape
+    q, k, v, logw = _inputs((b, t, h, dk, dv), seed=dk + dv)
+    want = np.asarray(ref_ssd_scan(q, k, v, logw, chunk=chunk,
+                                   interpret=True))
+    got = ls.ssd_scan(*_t(q, k, v, logw), chunk=chunk)
+    assert got.shape == (b, t, h, dv)
+    np.testing.assert_allclose(got.numpy(), want, **SCAN_TOL)
+
+
 @pytest.mark.parametrize("shape,chunk", [
     ((2, 100, 3, 16, 32), 32),     # ragged T: 100 = 3 * 32 + 4
     ((1, 77, 2, 32, 16), 128),     # one ragged chunk
@@ -120,12 +139,15 @@ def test_ssd_scan_steep_decay_is_finite_and_forgets():
 
 
 def test_ssd_scan_checks_its_arguments():
+    """What the kernel cannot take raises, on the CPU too: a chunk below 1,
+    dk or dv of 0 or above ``MAX_DIM`` (256)."""
     q, k, v, logw = _t(*_inputs((1, 8, 1, 4, 4)))
     with pytest.raises(ValueError, match="chunk"):
-        ls.ssd_scan(q, k, v, logw, chunk=256)
-    with pytest.raises(ValueError, match="dk"):
-        z = torch.zeros((1, 8, 1, 65))
-        ls.ssd_scan(z, z, z[..., :4], logw)
+        ls.ssd_scan(q, k, v, logw, chunk=0)
+    for dk, dv in ((0, 4), (ls.MAX_DIM + 1, 4), (4, ls.MAX_DIM + 1)):
+        with pytest.raises(ValueError, match="dk"):
+            z = torch.zeros((1, 8, 1, dk))
+            ls.ssd_scan(z, z, torch.zeros((1, 8, 1, dv)), logw)
     with pytest.raises(ValueError, match="dtype"):
         ls.ssd_scan(q.double(), k, v, logw)
     with pytest.raises(ValueError, match="logw"):
