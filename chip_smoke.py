@@ -21,10 +21,12 @@
    as 14 element arrays (int3 codes and bf16 scale patterns of the 7
    matrices, taken from layer 0 of the int3 tree), C_max 3025.  The
    ``cuda`` pack is byte-equal to the ``numpy`` pack; the ``cuda`` fused
-   and per-slot decodes equal the ``numpy`` decode and the input codes.
+   and per-slot decodes equal the ``numpy`` decode and the input codes,
+   one launch each (the per-slot one covers the plan's 2170 units).
    Then ``compare(PAPER_EXAMPLE)`` (C_max 19/13/13/9) and ``cuda`` round
    trips of ``PAPER_EXAMPLE`` and ``INV_HELMHOLTZ`` (three 64-bit arrays,
-   two u32 fields a piece), every array through the kernels.
+   two u32 fields a piece), every array through the kernels, launches
+   pack / fused / per-slot (1, 1, 1).
 5. int4 pack on the card: ``pack_tree`` at full width and depth packs
    each layer with one ``pack_layout_fused`` launch; 30/30 layer streams
    byte-equal to the host ``pack_compiled`` of the quantized pieces.
@@ -32,11 +34,17 @@
    (one ``decode_layout_fused`` launch per layer) rebuilds scales (and
    the int4 views) equal to the tree's; each layer's decode equals the
    host ``unpack_indexed``, the quantized codes and the scale patterns.
+   Prints the restore's wall ms and its device ms (every device event of
+   a profiler window over the call).
 7. Each new kernel against its plain version at the main path's shapes:
    ``packed_matmul`` (the 7 int4 matrices of a layer at M=4, the served
    batch),
-   ``pack_layout_fused`` (one int4 layer), ``decode_layout_fused`` (one
-   int3 layer) and ``decode_slot`` (the front door's 2170 slots).  Prints
+   ``pack_layout_fused`` (one int4 layer), ``decode_layout_fused`` (the
+   whole call on one int3 and one int4 layer: one kernel in its profiler
+   window; beside it ``decode_grid``, the TPU kernel's grid, held against
+   ``decode_grid_plain``) and
+   ``decode_slot`` (the front door's whole per-slot decode, one launch
+   over 2170 units, and a sample of one-unit ``decode_slot`` calls).  Prints
    max errors and times: the kernel back to back and its device time per
    launch, its plain version, one PyTorch library call of the same
    function where there is one (never used by the port, its device time
@@ -162,17 +170,13 @@ def time_ms(fn, iters: int = 30, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
-def device_ms(fn, kernel: str | None, iters: int = 30,
-              per_call: int = 1) -> float | None:
-    """Device time per call of the CUDA kernel whose name contains
-    ``kernel`` (of every kernel ``fn`` launches when ``kernel`` is None):
-    ``torch.profiler``'s device time over ``iters`` back-to-back calls,
-    divided by the launches it recorded over ``per_call``, the launches
-    of one call (by ``iters`` for None).  A profiler warm-up step of
-    ``iters`` calls comes first.  Unlike :func:`time_ms` it leaves out
-    the host's cost of each launch.  A window in which the profiler
-    recorded no device time is taken again once; None if it stays
-    empty (printed, never 0)."""
+def _device_window(fn, kernel: str | None, iters: int
+                   ) -> tuple[float, int, set[str]] | None:
+    """``torch.profiler`` over ``iters`` back-to-back calls of ``fn``
+    after a warm-up step of as many: the device time (us), the count and
+    the names of the device events whose name contains ``kernel`` (every
+    device event when None).  A window in which the profiler recorded no device time
+    is taken again once; None if it stays empty."""
     import torch
     from torch.profiler import ProfilerActivity, profile, schedule
 
@@ -195,17 +199,64 @@ def device_ms(fn, kernel: str | None, iters: int = 30,
             events[0], "self_device_time_total") else "self_cuda_time_total"
         total = sum(getattr(e, key) for e in events)
         if total > 0:
-            break
+            return (total, sum(e.count for e in events),
+                    {e.key for e in events})
         print(f"device_ms: the profiler recorded no device time of "
               f"{kernel or 'the call'}; once more")
-    else:
+    return None
+
+
+def device_ms(fn, kernel: str | None, iters: int = 30,
+              per_call: int = 1) -> float | None:
+    """Device time per call of the CUDA kernel whose name contains
+    ``kernel`` (of every kernel ``fn`` launches when ``kernel`` is None):
+    ``torch.profiler``'s device time over ``iters`` back-to-back calls,
+    divided by the launches it recorded over ``per_call``, the launches
+    of one call (by ``iters`` for None).  Unlike :func:`time_ms` it
+    leaves out the host's cost of each launch.  None where the profiler
+    recorded no device time (printed, never 0)."""
+    window = _device_window(fn, kernel, iters)
+    if window is None:
         return None
-    n = sum(e.count for e in events) if kernel is not None \
-        else iters * per_call
-    if n != iters * per_call:
+    total, n, _ = window
+    if kernel is None:
+        n = iters * per_call
+    elif n != iters * per_call:
         print(f"device_ms: the profiler recorded {n} of {iters * per_call} "
               f"launches of {kernel}")
     return total / (n / per_call) / 1e3
+
+
+def device_call(fn, iters: int = 30) -> tuple[float | None, float | None]:
+    """Device time (ms) of one call of ``fn``, summed over every device
+    event of the profiler window, and the device events (kernels and
+    copies) per call."""
+    window = _device_window(fn, None, iters)
+    if window is None:
+        return None, None
+    return window[0] / iters / 1e3, window[1] / iters
+
+
+def one_kernel_ms(fn, kernel: str, what: str, iters: int = 30
+                  ) -> float | None:
+    """Device time (ms) of one call of ``fn``, which must run on the
+    device the one kernel whose name contains ``kernel`` and nothing
+    else: every device event of the profiler window is that kernel, at
+    most one a call.  The profiler may drop a few activity records from a
+    window (28 of 30 calls' kernels seen on an H100), so the time is the
+    mean of the launches it kept; the caller's launch counter checks that
+    each call launches once."""
+    window = _device_window(fn, None, iters)
+    if window is None:
+        return None
+    total, n, names = window
+    if n > iters or any(kernel not in k for k in names):
+        raise AssertionError(f"{what}: {n} device events over {iters} calls "
+                             f"({sorted(names)}), expected one {kernel} a "
+                             "call and nothing else")
+    if n != iters:
+        print(f"{what}: the profiler recorded {n} of {iters} launches")
+    return total / n / 1e3
 
 
 def fmt_ms(ms: float | None) -> str:
@@ -635,13 +686,19 @@ def host_pieces(tree, layer: int) -> dict[str, np.ndarray]:
     return {names[i]: v for i, v in out.items()}
 
 
+def n_units(dplan) -> int:
+    """Units of the per-slot decode of a plan: one per slot, two for a
+    slot wider than 32 bits (its low and high u32 fields)."""
+    return dplan.n_units + sum(s.width > 32 for s in dplan.slots)
+
+
 def front_door(cfg, tree3, dev):
     """``api.plan`` of one smollm layer as 14 element arrays (the codes
     and scale patterns of layer 0 of the int3 tree); numpy / cuda pack
     and numpy / cuda fused / cuda per-slot decode must agree with each
-    other and with the codes.  Then the paper's example and the inverse
-    Helmholtz problem.  Returns the plan, its packed buffer and the
-    per-slot path's ``decode_slot`` launches."""
+    other and with the codes; each decode is one launch.  Then the
+    paper's example and the inverse Helmholtz problem.  Returns the plan,
+    its packed buffer and the per-slot path's launches."""
     import torch
 
     from repro_torch import api
@@ -688,11 +745,12 @@ def front_door(cfg, tree3, dev):
         if bad:
             raise AssertionError(f"front door {what} decode differs: {bad}")
     if counts != {"pack_layout_fused": 1, "decode_layout_fused": 1,
-                  "decode_slot": dplan.n_units}:
+                  "decode_slot": 1}:
         raise AssertionError(f"front door launches {counts}")
     print(f"front door: cuda pack == numpy pack ({buf.nbytes} B); numpy, "
           f"cuda fused and cuda per-slot decodes == the layer's codes "
-          f"({len(codes)} arrays); launches {counts}")
+          f"({len(codes)} arrays); launches {counts}; the per-slot launch "
+          f"covers {n_units(dplan)} units")
     cmp = api.compare(api.PAPER_EXAMPLE, cache=None)
     print("compare(PAPER_EXAMPLE): " + "; ".join(
         f"{k} C_max={v.c_max} L_max={v.l_max} B_eff={v.efficiency:.4f}"
@@ -710,20 +768,19 @@ def front_door(cfg, tree3, dev):
         outs = [p2.decode(b2, backend="cuda", device=dev),
                 p2.decode(b2, backend="cuda", fused=False, device=dev)]
         torch.cuda.synchronize()
-        n_wide = sum(s.width > 32 for s in p2.decode_plan.slots)
-        want_slots = p2.decode_plan.n_units + n_wide
         got = (lp.launches, ld.fused_launches, ld.slot_launches)
         if not np.array_equal(b2, p2.pack(c2)) or not all(
                 np.array_equal(o[k], c2[k]) for o in outs for k in c2):
             raise AssertionError(f"{name}: cuda round trip failed")
-        if got != (1, 1, want_slots):
+        if got != (1, 1, 1):
             raise AssertionError(f"{name}: launches {got}, expected "
-                                 f"(1, 1, {want_slots})")
+                                 f"(1, 1, 1)")
         print(f"{name}: cuda pack == numpy pack; cuda fused and per-slot "
               f"decodes == codes; {len(p2.exec_program.host_arrays)} of "
               f"{len(prob.arrays)} arrays wider than 32 bits, on the "
               f"kernels as two u32 fields; launches pack/fused/per-slot "
-              f"{got}")
+              f"{got}, the per-slot launch covering "
+              f"{n_units(p2.decode_plan)} units")
     return pl, buf, counts["decode_slot"]
 
 
@@ -821,6 +878,9 @@ def stack_decode(trees, dev) -> int:
         restore_s = time.perf_counter() - t0
         n_dec = ld.fused_launches
         launches += n_dec
+        restore_dms, restore_events = device_call(
+            lambda: unpack_streams(tree.manifest, tree.streams, tree.other,
+                                   device=dev), iters=2)
         rebuilt = all(torch.equal(back.scales[k].view(torch.int16),
                                   v.view(torch.int16))
                       for k, v in tree.scales.items()) and \
@@ -854,8 +914,10 @@ def stack_decode(trees, dev) -> int:
             if tree.packed else ""
         print(f"restore int{tree.spec.bits}: unpack_streams "
               f"({back.provenance}) of {tree.n_layers} layers in "
-              f"{restore_s * 1e3:.1f} ms ({n_dec} decode_layout_fused "
-              f"launches) rebuilds scales{' and views' if tree.packed else ''}"
+              f"{restore_s * 1e3:.1f} ms wall, device "
+              f"{fmt_ms(restore_dms)} ms over {restore_events} device "
+              f"events ({n_dec} decode_layout_fused launches) rebuilds "
+              f"scales{' and views' if tree.packed else ''}"
               f" equal to the tree's: {rebuilt}; "
               f"{tree.n_layers - len({b[0] for b in bad})}/{tree.n_layers} "
               f"layer decodes equal to the host unpack, the quantized codes "
@@ -1004,93 +1066,154 @@ def check_pack_kernel(tree, dev) -> dict:
 
 
 def check_decode_kernel(trees, dev) -> dict:
-    """``decode_grid`` on one layer of each tree against the plain
-    version.  The slot table serves every layer: the bound counts it
-    once per stack.  Returns the first tree's row."""
+    """The whole ``decode_layout_fused`` of one layer of each tree (one
+    ``decode_pieces`` launch), against the plain version and against the
+    TPU kernel's form (``decode_grid_plain``, then the gather and the
+    halves joined); timed back to back and on the device (every kernel of
+    the call's profiler window, which must hold one), with the
+    ``decode_grid`` kernel beside it, held against ``decode_grid_plain``.
+    The descriptors (and the grid's
+    slot table) serve every layer: the bound counts them once per stack.
+    Returns the first tree's row."""
     import torch
 
     from repro_torch.kernels import layout_decode as ld
+    from repro_torch.kernels.ref import U32
 
     rows = []
     for tree in trees:
-        prog = tree.exec_program()
+        prog, lay = tree.exec_program(), tree.layout()
+        buf = tree.streams[0]
         words = tree.layer_stream_words(0).reshape(prog.c_max, prog.words32)
-        tab, _ = ld.device_decode_tables(prog, dev)
-        got = ld.decode_grid(words, tab)
-        want = ld.decode_grid_plain(words, tab)
+        desc = ld.device_piece_table(prog, dev)
+        got = ld.decode_pieces(words, desc)
+        tab, flat = ld.device_decode_tables(prog, dev)
+        fields = ld.decode_grid_plain(words, tab).reshape(-1)[flat] \
+            .to(torch.int64) & U32
+        grid_way = fields[:prog.n_pieces].clone()
+        hi = prog.n_pieces
+        for i in prog.host_arrays:
+            lo, n = prog.piece_base[i], prog.piece_depths[i]
+            grid_way[lo:lo + n] |= fields[hi:hi + n] << 32
+            hi += n
+        whole = ld.decode_layout_fused(lay, buf, program=prog)
+        grid = ld.decode_grid(words, tab)
         torch.cuda.synchronize()
-        if not torch.equal(got, want):
+        if not torch.equal(got, ld.decode_pieces_plain(words, desc)) \
+                or not torch.equal(got, grid_way) \
+                or not torch.equal(got, torch.cat(list(whole.values()))):
             raise AssertionError("decode_layout_fused differs from its "
-                                 "plain version")
-        ms = time_ms(lambda: ld.decode_grid(words, tab))
-        dms = device_ms(lambda: ld.decode_grid(words, tab),
-                        "decode_fused_kernel")
-        pms = time_ms(lambda: ld.decode_grid_plain(words, tab), iters=5)
-        tab_bytes = tab.numel() * 4
-        nbytes = words.numel() * 4 + got.numel() * 4
-        bms, by = bound_ms(nbytes + tab_bytes / tree.n_layers, 0)
-        cold, cold_by = bound_ms(nbytes + tab_bytes, 0)
-        print(f"decode_layout_fused int{tree.spec.bits} layer: "
-              f"{prog.c_max} x {prog.kernel.lanes} entries: kernel "
-              f"{ms:.4f} ms (device {fmt_ms(dms)} ms)  plain {pms:.4f} ms  "
-              f"library none  bound "
-              f"{bms:.6f} ms ({by}; {nbytes} B with the {tab_bytes} B "
-              f"table over {tree.n_layers} layers); cold-L2 bound "
-              f"{cold:.6f} ms ({cold_by})  max|err| 0")
+                                 "plain version or the grid's gather")
+        if not torch.equal(grid, ld.decode_grid_plain(words, tab)):
+            raise AssertionError("decode_grid differs from its plain "
+                                 "version")
+
+        def call():
+            ld.decode_layout_fused(lay, buf, program=prog)
+
+        before = ld.fused_launches
+        call()
+        if ld.fused_launches != before + 1:
+            raise AssertionError("decode_layout_fused: "
+                                 f"{ld.fused_launches - before} launches a "
+                                 "call, expected 1")
+        ms = time_ms(call)
+        dms = one_kernel_ms(call, "decode_pieces_kernel",
+                            f"decode_layout_fused int{tree.spec.bits}")
+        kms = device_ms(lambda: ld.decode_pieces(words, desc),
+                        "decode_pieces_kernel")
+        pms = time_ms(lambda: ld.decode_pieces_plain(words, desc), iters=5)
+        desc_bytes = desc.numel() * desc.element_size()
+        nbytes = words.numel() * 4 + got.numel() * 8
+        bms, by = bound_ms(nbytes + desc_bytes / tree.n_layers, 0)
+        cold, cold_by = bound_ms(nbytes + desc_bytes, 0)
+        gms = time_ms(lambda: ld.decode_grid(words, tab))
+        gdms = device_ms(lambda: ld.decode_grid(words, tab),
+                         "decode_grid_kernel")
+        gbytes = words.numel() * 4 + tab.numel() * 4
+        gbms, _ = bound_ms(gbytes + tab.numel() * 4 / tree.n_layers, 0)
+        print(f"decode_layout_fused int{tree.spec.bits} layer (whole call): "
+              f"{got.numel()} pieces of {len(prog.piece_depths)} arrays "
+              f"into int64: {ms:.4f} ms (device {fmt_ms(dms)} ms, "
+              f"1 kernel a call; the kernel {fmt_ms(kms)} ms)  "
+              f"plain {pms:.4f} ms  library none  bound {bms:.6f} ms ({by}; "
+              f"{nbytes} B with the {desc_bytes} B of descriptors over "
+              f"{tree.n_layers} layers); cold-L2 bound {cold:.6f} ms "
+              f"({cold_by})  max|err| 0")
+        print(f"decode_grid int{tree.spec.bits} layer (the TPU kernel's "
+              f"grid): {prog.c_max} x {tab.shape[1]} entries: kernel "
+              f"{gms:.4f} ms (device {fmt_ms(gdms)} ms)  bound {gbms:.6f} ms "
+              f"(bytes, the grid written as int32)  == plain")
         rows.append({"max_abs_err": 0.0, "ms": ms, "device_ms": dms,
-                     "plain_ms": pms, "bound_ms": bms, "bound_by": by,
-                     "library_ms": None})
+                     "kernel_device_ms": kms, "plain_ms": pms,
+                     "bound_ms": bms, "bound_by": by, "cold_bound_ms": cold,
+                     "library_ms": None,
+                     "grid": {"ms": gms, "device_ms": gdms,
+                              "bound_ms": gbms}})
     return rows[0]
 
 
 def check_decode_slot(pl, buf, dev) -> dict:
-    """Every ``decode_slot`` launch of the front door's per-slot decode,
-    each against the plain version, then the whole per-slot decode
-    timed (its launches back to back)."""
+    """The front door's whole per-slot decode (``decode_layout(fused=
+    False)``: every unit of the plan in one ``decode_units`` launch)
+    against the plain version, timed back to back and on the device
+    (every kernel of its profiler window, which must hold one); then a
+    sample of the units, one ``decode_slot`` call each, against
+    ``decode_slot_plain``."""
     import torch
 
     from repro_torch.kernels import layout_decode as ld
-    from repro_torch.kernels.ops import buffer_to_u32
+    from repro_torch.kernels.ops import buffer_to_u32, decode_layout
 
-    words = buffer_to_u32(torch.from_numpy(buf).to(dev))
-    slots = pl.decode_plan.slots
-    offs = torch.from_numpy(np.concatenate([
-        s.bit_offset + np.arange(s.lanes) * s.width for s in slots])
-        .astype(np.int32)).to(dev)
-    jobs, at = [], 0
-    for s in slots:
-        jobs.append((words[s.start_cycle:s.start_cycle + s.n_cycles],
-                     offs[at:at + s.lanes], s.width,
-                     torch.empty(s.lanes * s.n_cycles, dtype=torch.int32,
-                                 device=dev)))
-        at += s.lanes
-    for slab, o, w, out in jobs:
-        ld.decode_slot(slab, o, w, out=out)
-        if not torch.equal(out, ld.decode_slot_plain(slab, o, w)):
-            raise AssertionError("decode_slot differs from its plain version")
+    plan = pl.decode_plan
+    dbuf = torch.from_numpy(buf).to(dev)
+    rows = ld.rows_u32(dbuf)
+    table = ld.device_unit_table(plan, pl.problem, dev)
+    got = ld.decode_units(rows, table)
+    torch.cuda.synchronize()
+    if not torch.equal(got, ld.decode_units_plain(rows, table)):
+        raise AssertionError("decode_units differs from its plain version")
 
-    def run():
-        for slab, o, w, out in jobs:
-            ld.decode_slot(slab, o, w, out=out)
+    def call():
+        decode_layout(pl.layout, dbuf, plan=plan, fused=False)
 
-    def run_plain():
-        for slab, o, w, _ in jobs:
-            ld.decode_slot_plain(slab, o, w)
-
-    ms = time_ms(run, iters=5, warmup=1)
-    dms = device_ms(run, "decode_slot_kernel", iters=2, per_call=len(jobs))
-    pms = time_ms(run_plain, iters=2, warmup=1)
-    n_out = sum(job[3].numel() for job in jobs)
-    nbytes = words.numel() * 4 + offs.numel() * 4 + n_out * 4
+    before = ld.slot_launches
+    call()
+    if ld.slot_launches != before + 1:
+        raise AssertionError(f"the per-slot decode: "
+                             f"{ld.slot_launches - before} launches a call, "
+                             "expected 1")
+    ms = time_ms(call)
+    dms = one_kernel_ms(call, "decode_units_kernel", "the per-slot decode")
+    kms = device_ms(lambda: ld.decode_units(rows, table),
+                    "decode_units_kernel")
+    pms = time_ms(lambda: ld.decode_units_plain(rows, table), iters=3,
+                  warmup=1)
+    words = buffer_to_u32(dbuf)
+    sample = plan.slots[::max(1, len(plan.slots) // 50)]
+    for s in sample:
+        offs = torch.tensor([s.bit_offset + j * s.width
+                             for j in range(s.lanes)], dtype=torch.int32,
+                            device=dev)
+        slab = words[s.start_cycle:s.start_cycle + s.n_cycles]
+        w = min(s.width, 32)
+        if not torch.equal(ld.decode_slot(slab, offs, w),
+                           ld.decode_slot_plain(slab, offs, w)):
+            raise AssertionError("decode_slot differs from its plain "
+                                 "version")
+    tab_bytes = table.units.numel() * 4 + table.prefix.numel() * 4
+    nbytes = dbuf.numel() + tab_bytes + got.numel() * 8
     bms, by = bound_ms(nbytes, 0)
-    print(f"decode_slot, the front door's per-slot decode: {len(jobs)} "
-          f"launches, {n_out} codes: kernel {ms:.4f} ms (device {fmt_ms(dms)} "
-          f"ms, {fmt_ms(dms and dms / len(jobs) * 1e3)} us a launch)  plain "
-          f"{pms:.4f} ms"
-          f"  library none  bound {bms:.6f} ms ({by}; {nbytes} B)  "
-          f"max|err| 0")
-    return {"max_abs_err": 0.0, "ms": ms, "device_ms": dms, "plain_ms": pms,
-            "bound_ms": bms, "bound_by": by, "library_ms": None}
+    print(f"decode_slot, the front door's whole per-slot decode: "
+          f"{table.units.shape[0]} units, {table.n_fields} codes into int64 "
+          f"in 1 launch: {ms:.4f} ms (device {fmt_ms(dms)} ms, 1 kernel "
+          f"a call; the kernel {fmt_ms(kms)} ms)  plain "
+          f"{pms:.4f} ms  library none  bound {bms:.6f} ms ({by}; {nbytes} "
+          f"B)  max|err| 0; {len(sample)} one-unit decode_slot calls == "
+          f"plain")
+    return {"max_abs_err": 0.0, "ms": ms, "device_ms": dms,
+            "kernel_device_ms": kms, "plain_ms": pms, "bound_ms": bms,
+            "bound_by": by, "library_ms": None}
 
 
 def profile_steps(engine, prompts, label: str, n_steps: int = 4) -> None:

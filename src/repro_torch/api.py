@@ -21,8 +21,8 @@ Two registries make the pipeline pluggable:
   ``"hls_padded"``.
 * **backends** (:data:`BACKENDS`) execute a plan: ``"numpy"`` is the
   host bit-gatherer, ``"cuda"`` the port's CUDA kernels (``fused=True``:
-  ``decode_layout_fused``, one launch; ``fused=False``: one
-  ``decode_slot`` launch per decode unit), ``"c"`` emits the paper's
+  ``decode_layout_fused``, one launch; ``fused=False``: the per-slot
+  decode of every unit of the decode plan, one launch), ``"c"`` emits the paper's
   Listing 1/2 HLS source.  ``plan.decode`` normalizes every backend's
   output to uint64 numpy arrays, so cross-backend equality is plain
   ``np.array_equal``.  The ``"cuda"`` backend takes ``device=`` and runs

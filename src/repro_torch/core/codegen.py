@@ -12,8 +12,9 @@ Three artifacts, mirroring the paper's pipeline:
   inspection/tests.
 * **Accelerator-side decoding** (paper Listing 2): :func:`decode_plan`
   produces the static per-interval slot tables the per-slot decode
-  kernel (``repro_torch.kernels.layout_decode.decode_slot``) is launched
-  over, and :func:`unpack_arrays` is the pure-numpy oracle of that kernel.
+  kernel (``repro_torch.kernels.layout_decode.decode_units``, every unit
+  in one launch) runs over, and :func:`unpack_arrays` is the pure-numpy
+  oracle of that kernel.
 * **FIFO/staging report**: sizes the decode module's per-array staging
   (paper: shift-register write ports), from ``Layout.fifo_depths``.
 

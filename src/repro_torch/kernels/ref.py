@@ -5,7 +5,9 @@ Own port of ``src/repro/kernels/ref.py``: the funnel-shift
 (both keeping the reference's K-block accumulation order),
 :func:`stream_kv_ref`, the plain versions of the layout kernels:
 :func:`decode_fused_ref` (one ``(row, lane)`` slot-table entry at a
-time), :func:`decode_slot_ref` and :func:`pack_fused_ref` (gather, shift
+time), :func:`decode_pieces_ref` (one piece descriptor at a time),
+:func:`decode_slot_ref`, :func:`decode_units_ref` (every unit of a
+decode plan) and :func:`pack_fused_ref` (gather, shift
 and OR over the K contributions of each word), and :func:`ssd_scan_plain`
 (the chunked closed form of ``src/repro/kernels/linear_scan.py:42-70``).  They run on any device;
 the kernel wrappers call them only for CPU tensors, and
@@ -166,6 +168,78 @@ def decode_slot_ref(rows: torch.Tensor, offsets: torch.Tensor,
     hi = x[:, torch.clamp(w0 + 1, max=x.shape[1] - 1)] << (32 - sh)
     v = torch.where((sh > 0) & (sh + width > 32), lo | hi, lo)
     return to_int32_bits(v & ((1 << width) - 1)).reshape(-1)
+
+
+def _row_fields(x: torch.Tensor, row: torch.Tensor, off: torch.Tensor,
+                width: torch.Tensor) -> torch.Tensor:
+    """Fields of per-field ``width`` (0-32) at bit ``off`` of row ``row``
+    of the ``(R, W)`` int64 words ``x``, as ``extract_bits`` takes them:
+    word indices clamped to the row's last word, bits above ``width``
+    dropped."""
+    last = x.shape[1] - 1
+    w0 = torch.clamp(off >> 5, max=last)
+    sh = off & 31
+    lo = x[row, w0] >> sh
+    hi = x[row, torch.clamp(w0 + 1, max=last)] << ((32 - sh) & 63)
+    v = torch.where(sh > 0, lo | hi, lo)
+    return v & ((1 << width) - 1)
+
+
+def decode_pieces_ref(words: torch.Tensor, desc: torch.Tensor
+                      ) -> torch.Tensor:
+    """Plain version of the direct fused decode kernel.
+
+    ``words``: the ``(R, W)`` int32-stored u32 bus rows; ``desc``: one
+    descriptor per piece, ``global bit offset << 6 | (width - 1)`` with
+    the offset into the flattened rows and a width of 1-64, as int32
+    holding u32 bits or as int64.  A piece wider than 32 bits is its low
+    32 bits at the offset and the rest 32 bits further on.  Returns the
+    ``(P,)`` int64 pieces (a 64-bit piece keeps its top bit in the
+    sign).
+    """
+    x = (words.to(torch.int64) & U32).reshape(1, -1)
+    d = desc.to(torch.int64)
+    if desc.dtype == torch.int32:
+        d = d & U32
+    off, width = d >> 6, (d & 63) + 1
+    row = torch.zeros_like(off)
+    lo = _row_fields(x, row, off, torch.clamp(width, max=32))
+    hi = _row_fields(x, row, off + 32, torch.clamp(width - 32, min=0))
+    return lo | (hi << 32)
+
+
+def decode_units_ref(words: torch.Tensor, units: torch.Tensor,
+                     prefix: torch.Tensor, n_out: int) -> torch.Tensor:
+    """Plain version of the whole-plan per-slot decode kernel.
+
+    ``words``: ``(R, W)`` int32-stored u32 bus rows; ``units``: ``(U,
+    8)`` int32 rows ``(row0, lanes, first, pitch, width, kind, base,
+    n_cycles)``; ``prefix``: the ``(U + 1,)`` prefix sums of the units' field
+    counts.  Field ``j`` of a unit is lane ``j % lanes`` of row ``row0 +
+    j // lanes``, ``width`` bits at ``first + lane * pitch``: kind 0
+    stores it as element ``base + j`` of the int64 output, kind 1 / 2 as
+    that element's low / high u32 word.  Elements no unit covers read 0.
+    """
+    out = torch.zeros(n_out, dtype=torch.int64, device=words.device)
+    n_fields = int(prefix[-1])
+    if n_fields == 0:
+        return out
+    x = words.to(torch.int64) & U32
+    u, p = units.to(torch.int64), prefix.to(torch.int64)
+    uid = torch.repeat_interleave(
+        torch.arange(u.shape[0], device=words.device), p.diff())
+    j = torch.arange(n_fields, device=words.device) - p[uid]
+    lanes = u[uid, 1]
+    r = j // lanes
+    off = u[uid, 2] + (j - r * lanes) * u[uid, 3]
+    v = _row_fields(x, u[uid, 0] + r, off, u[uid, 4])
+    kind, elem = u[uid, 5], u[uid, 6] + j
+    whole = kind == 0
+    out[elem[whole]] = v[whole]
+    out32 = out.view(torch.int32)
+    half = ~whole
+    out32[2 * elem[half] + kind[half] - 1] = to_int32_bits(v[half])
+    return out
 
 
 def pack_fused_ref(flat: torch.Tensor, src: torch.Tensor,

@@ -466,3 +466,81 @@ def test_stream_matmul_bit_equal_to_packed_matmul(cuda, int4_layer, key):
         torch.cuda.synchronize()
         assert sm.launches == before + 1
         assert torch.equal(streamed, packed), (key, m)
+
+
+def _decode_problem(name):
+    """The front door's layer problem (one smollm-135m layer's 7 int3
+    matrices and their bf16 scale patterns as 14 element arrays, m 4096:
+    2170 decode units), or a problem of ``repro_torch.api`` by name."""
+    from repro_torch import api
+
+    if name != "layer":
+        return getattr(api, name)
+    specs = []
+    for mat, (k, n) in zip(("wq", "wk", "wv", "wo", "w_gate", "w_up",
+                            "w_down"), SMOLLM_MATS):
+        specs += [(mat, 3, k * n, 0), (f"{mat}_scales", 16, k * n // 32, 0)]
+    return api.make_problem(4096, specs)
+
+
+@pytest.mark.parametrize("name", ["layer", "PAPER_EXAMPLE", "INV_HELMHOLTZ"])
+def test_decode_kernels_one_launch_each(cuda, name):
+    """The fused decode (``decode_pieces``) and the whole-plan per-slot
+    decode (``decode_units``): one launch each, bit-equal to their plain
+    versions and to the codes (64-bit pieces with the top bit set), the
+    fused one with 32- and with 64-bit descriptors; a
+    plan with a unit left out reads 0 there; ``decode_slot`` on one unit
+    (or a wide unit's low field) still equals its plain version; the front
+    door's two decodes are one
+    launch each."""
+    import dataclasses
+
+    from repro_torch import api
+    from repro_torch.kernels import layout_decode as ld
+    from repro_torch.kernels.ops import buffer_to_u32
+
+    prob = _decode_problem(name)
+    pl = api.plan(prob, cache=None)
+    codes = api.random_codes(prob, seed=1)
+    for a in prob.arrays:
+        if a.width == 64:
+            codes[a.name][::3] |= np.uint64(1 << 63)
+    buf = pl.pack(codes)
+    prog, plan = pl.exec_program, pl.decode_plan
+    want = np.concatenate([codes[a.name] for a in prob.arrays])
+    words = torch.from_numpy(prog.buffer_words32(buf).view(np.int32).copy()) \
+        .to(cuda)
+    rows = buffer_to_u32(torch.from_numpy(buf).to(cuda))
+    desc = ld.device_piece_table(prog, cuda)
+    table = ld.device_unit_table(plan, prob, cuda)
+    before = (ld.fused_launches, ld.slot_launches)
+    pieces = ld.decode_pieces(words, desc)
+    fields = ld.decode_units(rows, table)
+    torch.cuda.synchronize()
+    assert (ld.fused_launches, ld.slot_launches) == (before[0] + 1,
+                                                     before[1] + 1)
+    assert torch.equal(pieces, ld.decode_pieces_plain(words, desc))
+    wide = torch.from_numpy(ld.piece_descriptors(prog).astype(np.uint64)
+                            .view(np.int64)).to(cuda)
+    assert torch.equal(ld.decode_pieces(words, wide), pieces)
+    assert torch.equal(fields, ld.decode_units_plain(rows, table))
+    assert np.array_equal(pieces.cpu().numpy().view(np.uint64), want)
+    assert np.array_equal(fields.cpu().numpy().view(np.uint64), want)
+    part = dataclasses.replace(plan, slots=plan.slots[1:])
+    gap = ld.unit_table(part, prob).to(cuda)
+    assert not gap.covers_all
+    assert torch.equal(ld.decode_units(rows, gap),
+                       ld.decode_units_plain(rows, gap))
+    s = plan.slots[len(plan.slots) // 2]
+    offs = torch.tensor([s.bit_offset + j * s.width for j in range(s.lanes)],
+                        dtype=torch.int32, device=cuda)
+    slab = rows[s.start_cycle:s.start_cycle + s.n_cycles]
+    width = min(s.width, 32)            # a wide slot's low u32 field
+    assert torch.equal(ld.decode_slot(slab, offs, width),
+                       ld.decode_slot_plain(slab, offs, width))
+    before = (ld.fused_launches, ld.slot_launches)
+    for fused in (True, False):
+        out = pl.decode(buf, backend="cuda", fused=fused)
+        assert all(np.array_equal(out[k], codes[k]) for k in codes), fused
+    assert (ld.fused_launches, ld.slot_launches) == (before[0] + 1,
+                                                     before[1] + 1)
