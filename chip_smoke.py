@@ -28,7 +28,8 @@
    two u32 fields a piece), every array through the kernels, launches
    pack / fused / per-slot (1, 1, 1).
 5. int4 pack on the card: ``pack_tree`` at full width and depth packs
-   each layer with one ``pack_layout_fused`` launch; 30/30 layer streams
+   each layer with one ``pack_layout_fused`` launch (``pack_pieces``, as
+   the int3 pack of step 3 does: 60 launches in all); 30/30 layer streams
    byte-equal to the host ``pack_compiled`` of the quantized pieces.
 6. Whole-stack restore: ``unpack_streams`` of the int3 and the int4 tree
    (one ``decode_layout_fused`` launch per layer) rebuilds scales (and
@@ -39,7 +40,11 @@
 7. Each new kernel against its plain version at the main path's shapes:
    ``packed_matmul`` (the 7 int4 matrices of a layer at M=4, the served
    batch),
-   ``pack_layout_fused`` (one int4 layer), ``decode_layout_fused`` (the
+   ``pack_layout_fused`` (the whole ``pack_pieces`` call on one int3 and
+   one int4 layer, with the pieces as ``pack_tree`` handed them over: one
+   kernel in its profiler window, held against ``pack_runs_plain``,
+   ``pack_words`` and the layer's stream; beside it ``pack_words``, the
+   TPU kernel's form, held against its plain version), ``decode_layout_fused`` (the
    whole call on one int3 and one int4 layer: one kernel in its profiler
    window; beside it ``decode_grid``, the TPU kernel's grid, held against
    ``decode_grid_plain``) and
@@ -818,25 +823,48 @@ def host_pack(tree, params, qts, layer: int) -> np.ndarray:
                          program=prog)
 
 
+def counted_pack_tree(cfg, params, spec, dev) -> tuple:
+    """``pack_tree`` with the pack launches counted from 0 just before it
+    and read just after, and layer 0's pieces kept as ``pack_tree`` hands
+    them to ``pack_pieces``.  Returns the tree, the launches and those
+    pieces."""
+    import torch
+
+    from repro_torch import tree as tree_mod
+    from repro_torch.kernels import layout_pack as lp
+
+    handed = []
+    real = tree_mod.pack_pieces
+
+    def keep(prog, streams):
+        if not handed:
+            handed.extend(streams)
+        return real(prog, streams)
+
+    tree_mod.pack_pieces = keep
+    try:
+        torch.cuda.synchronize()
+        lp.launches = 0
+        tree = tree_mod.pack_tree(cfg, params, spec, device=dev)
+        torch.cuda.synchronize()
+        launches = lp.launches
+    finally:
+        tree_mod.pack_pieces = real
+    return tree, launches, handed
+
+
 def int4_pack(cfg, params, dev):
     """``pack_tree(int4/g32)`` at full width and depth, one
     ``pack_layout_fused`` launch per layer: every layer stream byte-equal
     to the host ``pack_compiled`` of the quantized pieces.  Returns the
-    tree, its quantized matrices and the pack launches."""
-    import torch
-
-    from repro_torch.kernels import layout_pack as lp
+    tree, its quantized matrices, the pack launches and layer 0's pieces
+    as ``pack_tree`` handed them over."""
     from repro_torch.quant import QuantSpec
-    from repro_torch.tree import pack_tree
 
     spec = QuantSpec(bits=4, group_size=32)
-    torch.cuda.synchronize()
-    lp.launches = 0
     t0 = time.perf_counter()
-    tree = pack_tree(cfg, params, spec, device=dev)
-    torch.cuda.synchronize()
+    tree, launches, handed = counted_pack_tree(cfg, params, spec, dev)
     t_cuda = time.perf_counter() - t0
-    launches = lp.launches
     qts = quantized(params, spec)
     t0 = time.perf_counter()
     same = sum(np.array_equal(tree.streams[la].cpu().numpy(),
@@ -848,7 +876,7 @@ def int4_pack(cfg, params, dev):
           f"{t_host:.2f} s; {same}/{tree.n_layers} layer streams byte-equal")
     if same != tree.n_layers or launches != tree.n_layers:
         raise AssertionError("int4 pack_tree differs from the host pack")
-    return tree, qts, launches
+    return tree, qts, launches, handed
 
 
 def stack_decode(trees, dev) -> int:
@@ -1023,46 +1051,105 @@ def check_packed_matmul(tree, rng, dev) -> dict:
             "library_device_ms": layer["library_device_ms"]}
 
 
-def check_pack_kernel(tree, dev) -> dict:
-    """``pack_words`` on one int4 layer (its pieces from the host unpack
-    of layer 0) against the plain version and the layer's stream.  The
-    contribution tables serve every layer of the stack: the bound counts
-    them once per stack."""
+def pack_words_flat(prog, pieces: dict) -> np.ndarray:
+    """``pack_words``' flat u32 stream of a layer's pieces (the host
+    unpack): a zero sentinel, every piece's low 32 bits in piece order,
+    then the high halves of the pieces wider than 32 bits."""
+    n = len(prog.piece_depths)
+    low = [pieces[i] for i in range(n)]
+    high = [pieces[i] >> np.uint64(32) for i in prog.host_arrays]
+    return np.concatenate([np.zeros(1, np.uint64), *low, *high]) \
+        .astype(np.uint32)
+
+
+def check_pack_kernel(packs, dev) -> dict:
+    """The whole ``pack_pieces`` of layer 0 of each tree (one
+    ``pack_runs`` launch), from the pieces as ``pack_tree`` handed them
+    over, against ``pack_runs_plain``, ``pack_words`` (the TPU kernel's
+    form, over the flat u32 stream of the same pieces) and the layer's
+    stream; timed back to back and on the device (every device event of
+    the call's profiler window, which must hold one kernel).  Beside it
+    ``pack_words``, held against its plain version.  The run table (and
+    ``pack_words``' contribution tables) serve every layer: the bound
+    counts them once per stack.  ``packs``: ``(tree, pieces)`` pairs.
+    Returns the int4 tree's row."""
     import torch
 
     from repro_torch.kernels import layout_pack as lp
     from repro_torch.kernels.ref import words_tensor
 
-    prog = tree.exec_program()
-    pieces = prog.unpack_indexed(tree.streams[0].cpu().numpy())
-    flat = np.zeros(prog.n_pieces + 1, np.uint32)
-    flat[1:] = np.concatenate([pieces[i] for i in range(len(pieces))])
-    flat_t = words_tensor(flat, dev)
-    src, scode = lp.device_pack_tables(prog, dev)
-    got = lp.pack_words(flat_t, src, scode)
-    want = lp.pack_words_plain(flat_t, src, scode)
-    torch.cuda.synchronize()
-    if not torch.equal(got, want) or not torch.equal(
-            got, tree.layer_stream_words(0)):
-        raise AssertionError("pack_layout_fused differs from its plain "
-                             "version or from the layer's stream")
-    ms = time_ms(lambda: lp.pack_words(flat_t, src, scode))
-    dms = device_ms(lambda: lp.pack_words(flat_t, src, scode),
-                    "pack_fused_kernel")
-    pms = time_ms(lambda: lp.pack_words_plain(flat_t, src, scode), iters=5)
-    tab_bytes = (src.numel() + scode.numel()) * 4
-    nbytes = flat_t.numel() * 4 + got.numel() * 4
-    bms, by = bound_ms(nbytes + tab_bytes / tree.n_layers, 0)
-    cold, cold_by = bound_ms(nbytes + tab_bytes, 0)
-    print(f"pack_layout_fused int{tree.spec.bits} layer: {prog.n_pieces} "
-          f"pieces, K={src.shape[0]}, {got.numel()} words: kernel {ms:.4f} "
-          f"ms (device {fmt_ms(dms)} ms)  plain {pms:.4f} ms  library none  "
-          f"bound {bms:.6f} ms ({by}; "
-          f"{nbytes} B with the {tab_bytes} B of tables over "
-          f"{tree.n_layers} layers); cold-L2 bound {cold:.6f} ms ({cold_by})"
-          f"  max|err| 0")
-    return {"max_abs_err": 0.0, "ms": ms, "device_ms": dms, "plain_ms": pms,
-            "bound_ms": bms, "bound_by": by, "library_ms": None}
+    rows = {}
+    for tree, streams in packs:
+        prog = tree.exec_program()
+        bits = tree.spec.bits
+        table = lp.device_pack_runs(prog, dev)
+        got = lp.pack_pieces(prog, streams)
+        plain = lp.pack_runs_plain(table.runs, streams, prog.c_max,
+                                   prog.words32)
+        flat_t = words_tensor(
+            pack_words_flat(prog, prog.unpack_indexed(
+                tree.streams[0].cpu().numpy())), dev)
+        src, scode = lp.device_pack_tables(prog, dev)
+        words = lp.pack_words(flat_t, src, scode)
+        torch.cuda.synchronize()
+        if not torch.equal(got, tree.streams[0]) \
+                or not torch.equal(lp.pack_runs(table, streams), plain) \
+                or not torch.equal(words, plain.reshape(-1)):
+            raise AssertionError(f"pack_layout_fused int{bits}: pack_pieces "
+                                 "differs from pack_runs_plain, pack_words "
+                                 "or the layer's stream")
+        if not torch.equal(words, lp.pack_words_plain(flat_t, src, scode)):
+            raise AssertionError("pack_words differs from its plain version")
+
+        def call():
+            lp.pack_pieces(prog, streams)
+
+        before = lp.launches
+        call()
+        if lp.launches != before + 1:
+            raise AssertionError(f"pack_pieces: {lp.launches - before} "
+                                 "launches a call, expected 1")
+        ms = time_ms(call)
+        dms = one_kernel_ms(call, "pack_runs_kernel",
+                            f"pack_layout_fused int{bits}")
+        kms = device_ms(lambda: lp.pack_runs(table, streams),
+                        "pack_runs_kernel")
+        pms = time_ms(lambda: lp.pack_runs_plain(
+            table.runs, streams, prog.c_max, prog.words32), iters=3)
+        in_bytes = sum(s.numel() * s.element_size() for s in streams)
+        out_bytes = got.numel()
+        tab_bytes = (table.runs.numel() + table.row_start.numel()) * 4
+        nbytes = in_bytes + prog.c_max * prog.words32 * 4
+        bms, by = bound_ms(nbytes + tab_bytes / tree.n_layers, 0)
+        cold, cold_by = bound_ms(nbytes + tab_bytes, 0)
+        print(f"pack_layout_fused int{bits} layer (whole pack_pieces call): "
+              f"{prog.n_pieces} pieces of {len(streams)} arrays "
+              f"({', '.join(sorted({str(s.dtype) for s in streams}))}), "
+              f"{table.runs.shape[0]} runs, {out_bytes} B out: {ms:.4f} ms "
+              f"(device {fmt_ms(dms)} ms, 1 kernel a call; the kernel "
+              f"{fmt_ms(kms)} ms)  plain {pms:.4f} ms  library none  "
+              f"bound {bms:.6f} ms ({by}; {in_bytes} B of arrays as stored "
+              f"+ {prog.c_max * prog.words32 * 4} B out, with the "
+              f"{tab_bytes} B run table over {tree.n_layers} layers); "
+              f"cold-L2 bound {cold:.6f} ms ({cold_by})  max|err| 0")
+        wms = time_ms(lambda: lp.pack_words(flat_t, src, scode))
+        wdms = device_ms(lambda: lp.pack_words(flat_t, src, scode),
+                         "pack_fused_kernel")
+        wtab = (src.numel() + scode.numel()) * 4
+        wbytes = flat_t.numel() * 4 + words.numel() * 4
+        wbms, _ = bound_ms(wbytes + wtab / tree.n_layers, 0)
+        print(f"pack_words int{bits} layer (the TPU kernel's form): "
+              f"K={src.shape[0]}, {words.numel()} words: kernel {wms:.4f} ms "
+              f"(device {fmt_ms(wdms)} ms)  bound {wbms:.6f} ms (bytes; "
+              f"{wbytes} B with the {wtab} B of tables over {tree.n_layers} "
+              f"layers)  == plain")
+        rows[bits] = {"max_abs_err": 0.0, "ms": ms, "device_ms": dms,
+                      "kernel_device_ms": kms, "plain_ms": pms,
+                      "bound_ms": bms, "bound_by": by, "cold_bound_ms": cold,
+                      "library_ms": None,
+                      "pack_words": {"ms": wms, "device_ms": wdms,
+                                     "bound_ms": wbms}}
+    return rows[4]
 
 
 def check_decode_kernel(trees, dev) -> dict:
@@ -1685,17 +1772,17 @@ def run(cfg, dev) -> list[dict]:
     from repro_torch.engine import Engine, EngineConfig, PackedAdapter
     from repro_torch.models.params import init_params
     from repro_torch.quant import QuantSpec
-    from repro_torch.tree import pack_tree
 
     rng = np.random.default_rng(0)
     t0 = time.perf_counter()
     params = init_params(cfg, torch.Generator(device=dev).manual_seed(0),
                          device=dev)
-    tree = pack_tree(cfg, params, QuantSpec(bits=3, group_size=32),
-                     device=dev)
+    tree, pack3_launches, pieces3 = counted_pack_tree(
+        cfg, params, QuantSpec(bits=3, group_size=32), dev)
     tree.stream_words()
     torch.cuda.synchronize()
-    print(f"pack int3: {tree.summary()} in {time.perf_counter() - t0:.2f} s")
+    print(f"pack int3: {tree.summary()} in {time.perf_counter() - t0:.2f} s "
+          f"({pack3_launches} pack_layout_fused launches)")
 
     rows = {"stream_matmul": check_stream_matmul(tree, rng, dev),
             "stream_attention": check_stream_attention(cfg, rng, dev)}
@@ -1704,12 +1791,16 @@ def run(cfg, dev) -> list[dict]:
         cfg, np.random.default_rng(2048), dev)
     rows["stream_attention"]["rep12"] = check_rep12_attention(dev)
     pl, buf, slot_launches = front_door(cfg, tree, dev)
-    tree4, qts4, pack_launches = int4_pack(cfg, params, dev)
+    tree4, qts4, pack4_launches, pieces4 = int4_pack(cfg, params, dev)
+    if pack3_launches != tree.n_layers:
+        raise AssertionError(f"int3 pack_tree: {pack3_launches} pack "
+                             f"launches, expected {tree.n_layers}")
     decode_launches = stack_decode(
         ((tree, quantized(params, tree.spec)), (tree4, qts4)), dev)
     del params
     rows["packed_matmul"] = check_packed_matmul(tree4, rng, dev)
-    rows["pack_layout_fused"] = check_pack_kernel(tree4, dev)
+    rows["pack_layout_fused"] = check_pack_kernel(
+        ((tree, pieces3), (tree4, pieces4)), dev)
     rows["decode_layout_fused"] = check_decode_kernel((tree, tree4), dev)
     rows["decode_slot"] = check_decode_slot(pl, buf, dev)
 
@@ -1735,7 +1826,7 @@ def run(cfg, dev) -> list[dict]:
     launches = {"stream_matmul": counts3["stream_matmul"],
                 "stream_attention": counts3["stream_attention"],
                 "packed_matmul": counts4["packed_matmul"],
-                "pack_layout_fused": pack_launches,
+                "pack_layout_fused": pack3_launches + pack4_launches,
                 "decode_layout_fused": decode_launches,
                 "decode_slot": slot_launches}
     meta = {

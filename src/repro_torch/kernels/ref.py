@@ -7,8 +7,10 @@ Own port of ``src/repro/kernels/ref.py``: the funnel-shift
 :func:`decode_fused_ref` (one ``(row, lane)`` slot-table entry at a
 time), :func:`decode_pieces_ref` (one piece descriptor at a time),
 :func:`decode_slot_ref`, :func:`decode_units_ref` (every unit of a
-decode plan) and :func:`pack_fused_ref` (gather, shift
-and OR over the K contributions of each word), and :func:`ssd_scan_plain`
+decode plan), :func:`pack_fused_ref` (gather, shift
+and OR over the K contributions of each word) and :func:`pack_runs_plain`
+(every piece of a run table shifted into its words), and
+:func:`ssd_scan_plain`
 (the chunked closed form of ``src/repro/kernels/linear_scan.py:42-70``).  They run on any device;
 the kernel wrappers call them only for CPU tensors, and
 ``chip_smoke.py`` holds each CUDA kernel against them on the card.
@@ -261,6 +263,61 @@ def pack_fused_ref(flat: torch.Tensor, src: torch.Tensor,
     for part in parts:
         out |= part
     return to_int32_bits(out)
+
+
+def pack_runs_plain(runs: torch.Tensor, streams: list[torch.Tensor],
+                    n_rows: int, words32: int) -> torch.Tensor:
+    """Plain version of the run-table pack kernel.
+
+    ``runs``: ``(R, 6)`` int32 rows ``(array, first piece, row, first bit,
+    width, count)``: ``count`` consecutive pieces of ``streams[array]``
+    from its element ``first`` on, each ``width`` (1-64) bits, side by
+    side in bus row ``row`` from bit ``first bit`` on.  A piece is its
+    element as ``.to(torch.int64)`` gives it, masked to its width; an
+    element index past its stream's end reads 0.  Returns the ``(n_rows,
+    words32)`` int32-stored u32 rows: the OR of every piece shifted into
+    place.
+    """
+    dev = runs.device
+    out = torch.zeros(n_rows * words32, dtype=torch.int64, device=dev)
+    r = runs.to(torch.int64)
+    counts = r[:, 5]
+    total = int(counts.sum()) if r.shape[0] else 0
+    if total == 0:
+        return to_int32_bits(out).reshape(n_rows, words32)
+    rid = torch.repeat_interleave(torch.arange(r.shape[0], device=dev),
+                                  counts)
+    k = torch.arange(total, device=dev) - (counts.cumsum(0) - counts)[rid]
+    arr, idx, width = r[rid, 0], r[rid, 1] + k, r[rid, 4]
+    gbit = r[rid, 2] * (words32 * 32) + r[rid, 3] + k * width
+    v = torch.zeros(total, dtype=torch.int64, device=dev)
+    for i, s in enumerate(streams):
+        s = s.reshape(-1).to(device=dev, dtype=torch.int64)
+        sel = torch.nonzero((arr == i) & (idx < s.shape[0])).reshape(-1)
+        v[sel] = s[idx[sel]]
+    v &= torch.where(width >= 64, -1, (1 << width.clamp(max=63)) - 1)
+    # as two u32 fields: the low 32 bits at the piece's bit, the rest 32
+    # bits further on; each field lands in one word or straddles two
+    field = torch.cat([v & U32, (v >> 32) & U32])
+    at = torch.cat([gbit, gbit + 32])
+    sh = at & 31
+    dest = torch.cat([at >> 5, (at >> 5) + 1])
+    part = torch.cat([(field << sh) & U32,
+                      torch.where(sh > 0, field >> (32 - sh), 0)])
+    keep = part != 0
+    dest, part = dest[keep], part[keep]
+    # OR the parts of each word together, one rank of the word at a time
+    dest, order = torch.sort(dest, stable=True)
+    part = part[order]
+    first = torch.ones_like(dest, dtype=torch.bool)
+    first[1:] = dest[1:] != dest[:-1]
+    starts = torch.nonzero(first).reshape(-1)
+    rank = torch.arange(dest.shape[0], device=dev) \
+        - starts[torch.cumsum(first, 0) - 1]
+    for j in range(int(rank.max()) + 1 if rank.numel() else 0):
+        sel = rank == j
+        out[dest[sel]] |= part[sel]
+    return to_int32_bits(out).reshape(n_rows, words32)
 
 
 def dequant_fields(codes: torch.Tensor, sc16: torch.Tensor, bits: int

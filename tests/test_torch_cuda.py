@@ -544,3 +544,133 @@ def test_decode_kernels_one_launch_each(cuda, name):
         assert all(np.array_equal(out[k], codes[k]) for k in codes), fused
     assert (ld.fused_launches, ld.slot_launches) == (before[0] + 1,
                                                      before[1] + 1)
+
+
+def _narrow(codes: np.ndarray, width: int) -> torch.Tensor:
+    """uint64 ``codes`` of ``width`` bits as the narrowest tensor type
+    that holds them (uint8, int16, int32 or int64), with their bits."""
+    for bits, np_t, signed in ((8, np.uint8, np.uint8),
+                               (16, np.uint16, np.int16),
+                               (32, np.uint32, np.int32),
+                               (64, np.uint64, np.int64)):
+        if width <= bits:
+            return torch.from_numpy(codes.astype(np_t).view(signed).copy())
+    raise ValueError(width)
+
+
+def _words_flat(prog, pieces: list[np.ndarray]) -> np.ndarray:
+    """``pack_words``' flat u32 stream of the same pieces: a zero
+    sentinel, every piece's low 32 bits in piece order, then the high
+    halves of the pieces wider than 32 bits."""
+    low = [p.astype(np.uint64) for p in pieces]
+    high = [pieces[i].astype(np.uint64) >> np.uint64(32)
+            for i in prog.host_arrays]
+    return np.concatenate([np.zeros(1, np.uint64), *low, *high]) \
+        .astype(np.uint32)
+
+
+def _pack_words_bytes(prog, pieces, dev) -> torch.Tensor:
+    from repro_torch.kernels import layout_pack as lp
+    from repro_torch.kernels.ref import words_tensor
+
+    src, scode = lp.device_pack_tables(prog, dev)
+    words = lp.pack_words(words_tensor(_words_flat(prog, pieces), dev), src,
+                          scode)
+    return words.view(torch.uint8).reshape(
+        prog.c_max, prog.words32 * 4)[:, :prog.row_bytes]
+
+
+@pytest.mark.parametrize("specs,m", LAYOUT_CASES.values(),
+                         ids=LAYOUT_CASES.keys())
+def test_pack_pieces_one_launch_equal_to_plain_and_pack_words(cuda, specs,
+                                                              m):
+    """The run-table pack: one launch a call, byte-equal to its plain
+    version and to ``pack_words`` on the same pieces, with int64 streams
+    (64-bit pieces with the top bit set), the narrowest stream types, and
+    streams shorter than their depth (the rest packs as 0)."""
+    from repro_torch.kernels import layout_pack as lp
+
+    pl, codes = _layout_case(specs, m, seed=3)
+    for a in pl.problem.arrays:
+        if a.width == 64:
+            codes[a.name][::3] |= np.uint64(1 << 63)
+    prog = pl.exec_program
+    names = [a.name for a in pl.problem.arrays]
+    wide = [torch.from_numpy(codes[n].view(np.int64)) for n in names]
+    narrow = [_narrow(codes[n], w) for n, w in zip(names, prog.elem_widths)]
+    short = [s[:s.numel() // 2] for s in narrow]
+    want = pl.pack(codes)
+    for what, streams in (("int64", wide), ("narrow", narrow),
+                          ("short", short)):
+        before = lp.launches
+        got = lp.pack_pieces(prog, [s.to(cuda) for s in streams])
+        torch.cuda.synchronize()
+        assert lp.launches == before + 1, what
+        assert torch.equal(got.cpu(), lp.pack_pieces(prog, streams)), what
+        if what != "short":
+            assert np.array_equal(got.cpu().numpy(), want), what
+    assert np.array_equal(
+        _pack_words_bytes(prog, [codes[n] for n in names], cuda).cpu()
+        .numpy(), want)
+
+
+def test_pack_pieces_full_width_int4_layer(cuda, int4_layer):
+    """One smollm-135m layer at full width and int4: ``pack_pieces`` of
+    the layer's pieces (uint8 codes, int32 bf16 patterns, as ``pack_tree``
+    hands them over, and as int64) is one launch and equals the layer's
+    stream, its plain version and ``pack_words``."""
+    from repro_torch.kernels import layout_pack as lp
+
+    tree = int4_layer
+    prog = tree.exec_program()
+    host = prog.unpack_indexed(tree.streams[0].cpu().numpy())
+    pieces = [host[i] for i in range(len(prog.piece_depths))]
+    narrow = [_narrow(p, w) for p, w in zip(pieces, prog.elem_widths)]
+    assert {s.dtype for s in narrow} == {torch.uint8, torch.int16}
+    as_tree = [s.to(torch.int32) if s.dtype == torch.int16 else s
+               for s in narrow]
+    as_tree = [torch.where(s < 0, s + (1 << 16), s)
+               if s.dtype == torch.int32 else s for s in as_tree]
+    wide = [torch.from_numpy(p.view(np.int64)) for p in pieces]
+    for what, streams in (("as pack_tree", as_tree), ("narrow", narrow),
+                          ("int64", wide)):
+        dev_streams = [s.to(cuda) for s in streams]
+        before = lp.launches
+        got = lp.pack_pieces(prog, dev_streams)
+        torch.cuda.synchronize()
+        assert lp.launches == before + 1, what
+        assert torch.equal(got, tree.streams[0]), what
+    table = lp.device_pack_runs(prog, cuda)
+    plain = lp.pack_runs_plain(table.runs, dev_streams, prog.c_max,
+                               prog.words32)
+    assert torch.equal(lp.pack_runs(table, dev_streams), plain)
+    assert torch.equal(_pack_words_bytes(prog, pieces, cuda),
+                       tree.streams[0])
+
+
+def test_pack_pieces_many_arrays_and_strided_streams(cuda):
+    """More arrays than the kernel's small argument table holds (40 > 32,
+    the 1024-entry table), and streams that are strided views: one
+    launch, byte-equal to the plain version and the host pack."""
+    from repro_torch.kernels import layout_pack as lp
+
+    widths = (3, 5, 7, 11, 16, 33, 64, 1)
+    specs = [(f"a{i}", widths[i % len(widths)], 20 + 3 * i, i % 6)
+             for i in range(40)]
+    pl, codes = _layout_case(specs, 256, seed=4)
+    for a in pl.problem.arrays:
+        if a.width == 64:
+            codes[a.name][::3] |= np.uint64(1 << 63)
+    prog = pl.exec_program
+    names = [a.name for a in pl.problem.arrays]
+    wide = [torch.from_numpy(codes[n].view(np.int64)) for n in names]
+    strided = [torch.stack([s, s], dim=1)[:, 0] for s in wide]
+    assert not strided[0].is_contiguous()
+    want = pl.pack(codes)
+    for what, streams in (("int64", wide), ("strided", strided)):
+        before = lp.launches
+        got = lp.pack_pieces(prog, [s.to(cuda) for s in streams])
+        torch.cuda.synchronize()
+        assert lp.launches == before + 1, what
+        assert np.array_equal(got.cpu().numpy(), want), what
+        assert torch.equal(got.cpu(), lp.pack_pieces(prog, streams)), what
