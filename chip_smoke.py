@@ -66,9 +66,34 @@
    with ``PackedAdapter(kv="packed")``, batch 4, max_seq 256, 8 requests
    of 16 new tokens.  Launch counters are zeroed just before each path
    and read just after: int4 serving launches ``packed_matmul`` 7 x 30
-   times per step and ``stream_matmul`` never; int3 the reverse.  Then a
-   ``torch.profiler`` window over 4 steady engine steps of each, int3 and
-   int4.
+   times per step and ``stream_matmul`` never; int3 the reverse.
+   After the int3 serve, the checkpoint phase
+   (:func:`checkpoint_phase`): an int3 ``PackedKVCache`` (batch 4,
+   max_seq 256) after 8 teacher-forced ragged decode steps is saved with
+   the int3 tree (``CheckpointManager.save_packed(..., kv=...)``: bytes
+   and wall s), verified on the host (``verify_packed``: ``ok``, with the
+   ``kvcache`` pass; wall s) and restored on the card (``restore_packed``:
+   30 ``decode_layout_fused`` launches, counted; streams, scales and
+   unquantized leaves equal to the tree's, bit for bit; wall ms and the
+   device ms of a profiler window over the call, split into memory
+   copies and the rest, beside ``unpack_streams`` of the resident tree;
+   ``restore_kv``: pages equal, provenance ``"checkpoint"``).  4 more
+   decode steps from the original state and from the restored tree and
+   cache give bit-equal logits.  The int4 tree is saved and restored
+   without KV (views equal) and 2 decode steps through ``packed_matmul``
+   from each, on fresh int4 caches, are bit-equal.  A flipped stream
+   bit and a truncated stream on disk are refused with ``AnalysisError``
+   under ``manifest/stream-digest`` and ``manifest/stream-shape``.  The
+   restored int3 tree then serves the 8 prompts through a
+   ``StreamUploader`` (``completed=8/8``, tokens equal to the resident
+   serve's, 210 ``stream_matmul`` and 30 ``stream_attention`` launches a
+   step, one sync fetch) three times, in turns with three serves from
+   its resident streams; a profiled window of 4 steps through the
+   uploader; and the 30 layers' uploads on the side stream, timed with
+   CUDA events against the bytes over 64 GB/s (PCIe Gen5 x16, one
+   direction, by the data sheet).
+   Then a ``torch.profiler`` window over 4 steady engine steps of each,
+   int3 and int4.
 9. Frees the smollm trees, then jamba-1.5-large-398b at its full widths,
    cut to one period (``n_layers`` 72 -> 8: 7 Mamba sublayers and 1 GQA
    attention sublayer) and ``moe=None`` (every sublayer takes the dense
@@ -85,7 +110,8 @@
    equal at every position; ``Engine(DenseAdapter)`` with 8 requests,
    batch 4, max_seq 256, 8 new tokens each, against the decode step's
    bytes bound.  Peak device memory is printed for each jamba phase.
-10. Prints one JSON ``kernels`` line (seven kernels, each with its
+10. Prints one JSON ``checkpoint`` line (the checkpoint phase's
+    figures) and one JSON ``kernels`` line (seven kernels, each with its
     ``device_ms``; the matmuls and ``stream_attention`` also with
     ``library_device_ms``; ``stream_attention`` with its smax-2048 and
     rep-12 points, ``ssd_scan`` with its dk=128 point),
@@ -113,6 +139,9 @@ sys.path.insert(0, str(ROOT / "src"))
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS = 67e12
 BF16_TC_FLOPS = 989e12
+#: PCIe Gen5 x16, one direction, by the data sheet: the host->device
+#: upload's bound
+PCIE_BYTES_PER_S = 64e9
 
 MM_KEYS = ("attn/wq", "attn/wk", "attn/wv", "attn/wo",
            "mlp/w_gate", "mlp/w_up", "mlp/w_down")
@@ -176,12 +205,14 @@ def time_ms(fn, iters: int = 30, warmup: int = 3) -> float:
 
 
 def _device_window(fn, kernel: str | None, iters: int
-                   ) -> tuple[float, int, set[str]] | None:
+                   ) -> tuple[float, int, set[str], float] | None:
     """``torch.profiler`` over ``iters`` back-to-back calls of ``fn``
     after a warm-up step of as many: the device time (us), the count and
     the names of the device events whose name contains ``kernel`` (every
-    device event when None).  A window in which the profiler recorded no device time
-    is taken again once; None if it stays empty."""
+    device event when None), and the device time (us) of the memory
+    copies (``Memcpy``) among them.  A window in which the profiler
+    recorded no device time is taken again once; None if it stays
+    empty."""
     import torch
     from torch.profiler import ProfilerActivity, profile, schedule
 
@@ -205,7 +236,9 @@ def _device_window(fn, kernel: str | None, iters: int
         total = sum(getattr(e, key) for e in events)
         if total > 0:
             return (total, sum(e.count for e in events),
-                    {e.key for e in events})
+                    {e.key for e in events},
+                    sum(getattr(e, key) for e in events
+                        if "Memcpy" in e.key))
         print(f"device_ms: the profiler recorded no device time of "
               f"{kernel or 'the call'}; once more")
     return None
@@ -223,7 +256,7 @@ def device_ms(fn, kernel: str | None, iters: int = 30,
     window = _device_window(fn, kernel, iters)
     if window is None:
         return None
-    total, n, _ = window
+    total, n = window[:2]
     if kernel is None:
         n = iters * per_call
     elif n != iters * per_call:
@@ -254,7 +287,7 @@ def one_kernel_ms(fn, kernel: str, what: str, iters: int = 30
     window = _device_window(fn, None, iters)
     if window is None:
         return None
-    total, n, names = window
+    total, n, names = window[:3]
     if n > iters or any(kernel not in k for k in names):
         raise AssertionError(f"{what}: {n} device events over {iters} calls "
                              f"({sorted(names)}), expected one {kernel} a "
@@ -621,9 +654,13 @@ def decode_check(cfg, tree, rng, dev, kv_bits: int) -> None:
                              f"weights differ")
 
 
-def serve(cfg, tree, prompts, kv_bits: int, per_step: dict) -> dict:
+def serve(cfg, tree, prompts, kv_bits: int, per_step: dict,
+          uploader=None, label: str = "") -> tuple[dict, list, float]:
     """A main path: Engine over PackedAdapter(kv='packed'), counted.
-    ``per_step`` is each kernel's launches per engine step."""
+    ``per_step`` is each kernel's launches per engine step; ``uploader``
+    (a ``StreamUploader``) serves the layer streams through it; ``label``
+    follows the line's name.  Returns the launches, each request's
+    greedy tokens and the ms per step."""
     import torch
 
     from repro_torch.engine import (
@@ -637,7 +674,7 @@ def serve(cfg, tree, prompts, kv_bits: int, per_step: dict) -> dict:
     from repro_torch.kvcache import stream_attention as sa
 
     engine = Engine(PackedAdapter(cfg, tree, kv="packed", kv_bits=kv_bits,
-                                  weights="auto"),
+                                  weights="auto", uploader=uploader),
                     EngineConfig(batch_size=4, max_seq=256,
                                  max_backlog=None))
     requests = [EngineRequest(uid=uid, prompt=prompt, max_new_tokens=16)
@@ -654,7 +691,7 @@ def serve(cfg, tree, prompts, kv_bits: int, per_step: dict) -> dict:
     wall = time.perf_counter() - t0
     counts = {"stream_matmul": sm.launches, "stream_attention": sa.launches,
               "packed_matmul": pm.launches}
-    print(f"serve int{tree.spec.bits} weights / int{kv_bits} KV: "
+    print(f"serve int{tree.spec.bits} weights / int{kv_bits} KV{label}: "
           f"completed={stats.completed}/{len(prompts)} "
           f"steps={stats.steps} tokens={stats.tokens_generated} "
           f"wall={wall:.3f} s tokens/s={stats.tokens_generated / wall:.2f} "
@@ -672,7 +709,324 @@ def serve(cfg, tree, prompts, kv_bits: int, per_step: dict) -> dict:
                 0 <= t < cfg.vocab_size for t in req.generated):
             raise AssertionError(f"request {req.uid}: bad tokens "
                                  f"{req.generated}")
-    return counts
+    return (counts, [req.generated for req in requests],
+            wall / max(1, stats.steps) * 1e3)
+
+
+def same_bits(a, b) -> bool:
+    """Equal shapes, dtypes and bits (bf16 compared as its int16 bits)."""
+    import torch
+
+    if a.shape != b.shape or a.dtype != b.dtype:
+        return False
+    if a.dtype == torch.bfloat16:
+        a, b = a.view(torch.int16), b.view(torch.int16)
+    return torch.equal(a, b)
+
+
+def same_leaves(got, want) -> bool:
+    """Two trees of dicts and tensors equal key for key, bit for bit."""
+    if isinstance(want, dict):
+        return sorted(got) == sorted(want) and all(
+            same_leaves(got[k], v) for k, v in want.items())
+    return same_bits(got, want)
+
+
+def same_tree(got, tree) -> bool:
+    """A restored tree's streams, scales, views and unquantized leaves
+    equal the saved tree's, bit for bit."""
+    return all(same_leaves(getattr(got, k), getattr(tree, k))
+               for k in ("streams", "scales", "packed", "other"))
+
+
+def counted_restore(mgr, step: int, dev):
+    """``restore_packed`` with the decode launches counted from 0 just
+    before it and read just after: (tree, launches, wall ms)."""
+    import torch
+
+    from repro_torch.kernels import layout_decode as ld
+
+    torch.cuda.synchronize()
+    ld.fused_launches = 0
+    t0 = time.perf_counter()
+    got, _ = mgr.restore_packed(step, device=dev)
+    torch.cuda.synchronize()
+    return got, ld.fused_launches, (time.perf_counter() - t0) * 1e3
+
+
+def device_parts(fn, iters: int = 1
+                 ) -> tuple[float | None, float | None, float | None]:
+    """Device time (ms) of one call of ``fn`` from one profiler window:
+    every device event, the memory copies among them, and the device
+    events a call.  Nones where the profiler recorded no device time."""
+    window = _device_window(fn, None, iters)
+    if window is None:
+        return None, None, None
+    total, n, _, copies = window
+    return total / iters / 1e3, copies / iters / 1e3, n / iters
+
+
+def decode_steps(cfg, tree, state, toks, ragged: bool = False
+                 ) -> tuple[list, dict]:
+    """Teacher-forced packed-KV decode steps through the kernels, one a
+    row of ``toks`` (``ragged``: slot i joins at step i, as in
+    :func:`decode_check`): the logits of each step and the state after
+    the last."""
+    import torch
+
+    from repro_torch.models.quantized import packed_decode_step
+
+    out = []
+    for t, row in enumerate(toks):
+        active = [i for i in range(len(row)) if t >= i or not ragged]
+        logits, state = packed_decode_step(
+            cfg, tree, state, torch.as_tensor(row[active], device=tree.device),
+            slot_ids=torch.tensor(active, device=tree.device), kv="packed")
+        out.append(logits)
+    return out, state
+
+
+def refused(mgr, step: int, rule: str, dev) -> str:
+    """``restore_packed`` of a corrupted checkpoint must raise
+    ``AnalysisError`` naming ``rule``: the refusal, rendered."""
+    from repro_torch.analysis import AnalysisError
+
+    try:
+        mgr.restore_packed(step, device=dev)
+    except AnalysisError as e:
+        if rule not in e.report.rule_ids():
+            raise AssertionError(f"refused, but not under {rule}: {e}") \
+                from None
+        return next(f.render() for f in e.report.errors if f.rule_id == rule)
+    raise AssertionError(f"a checkpoint that breaks {rule} was restored")
+
+
+def checkpoint_phase(cfg, tree3, tree4, prompts, dev, resident) -> dict:
+    """Save -> verify -> restore on the card -> decode on and serve.
+
+    A packed int3 KV cache (batch 4, max_seq 256) after 8 teacher-forced
+    ragged steps through the kernels is saved with the int3 tree
+    (``save_packed(..., kv=...)``), verified (``verify_packed``: ``ok``,
+    with the ``kvcache`` pass) and restored on the card
+    (``restore_packed``: 30 ``decode_layout_fused`` launches; streams,
+    scales and unquantized leaves equal to the tree's; ``restore_kv``:
+    pages equal, provenance ``"checkpoint"``).  4 more decode steps from
+    the original state and from the restored tree and cache give equal
+    logits, bit for bit.  The int4 tree is saved and restored without KV
+    (views equal) and 2 steps through ``packed_matmul`` from each, on
+    fresh int4 caches, are equal bit for bit.  A flipped stream bit and
+    a truncated stream on disk are refused under
+    ``manifest/stream-digest`` and ``manifest/stream-shape``.  Last the
+    restored int3 tree serves the serve phase's 8 prompts through a
+    ``StreamUploader`` (tokens equal to the resident serve's ``resident``
+    tokens, 210 + 30 launches a step), three times in turns with three
+    serves from its resident streams, then a profiled window of 4 steps
+    through the uploader; and the 30 layers' uploads, back
+    to back on the uploader's side stream, are timed against their PCIe
+    bound.  Returns the figures."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.engine import (
+        Engine,
+        EngineConfig,
+        PackedAdapter,
+        StreamUploader,
+    )
+    from repro_torch.kernels import packed_matmul as pm
+    from repro_torch.tree import unpack_streams
+
+    rng = np.random.default_rng(20)
+    tmp = pathlib.Path(tempfile.mkdtemp(prefix="iris-ckpt-"))
+    try:
+        mgr = CheckpointManager(tmp, keep_n=0)
+        b = 4
+        adapter = PackedAdapter(cfg, tree3, kv="packed", kv_bits=3)
+        state = adapter.init_state(b, 256)
+        toks = rng.integers(1, cfg.vocab_size, (DECODE_STEPS + 4, b))
+        _, state = decode_steps(cfg, tree3, state, toks[:DECODE_STEPS],
+                                ragged=True)
+        cache = state["packed_kv"]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        path = pathlib.Path(mgr.save_packed(1, tree3, {"decode_steps":
+                                                       DECODE_STEPS},
+                                            kv=cache))
+        save_s = time.perf_counter() - t0
+        n_bytes = sum(f.stat().st_size for f in path.iterdir())
+        print(f"checkpoint save: int3 tree + int3 KV cache (batch {b}, "
+              f"max_seq 256, after {DECODE_STEPS} ragged decode steps): "
+              f"{n_bytes} bytes in {len(list(path.iterdir()))} files, "
+              f"{save_s:.3f} s wall")
+        t0 = time.perf_counter()
+        report = mgr.verify_packed(1)
+        verify_s = time.perf_counter() - t0
+        print(f"checkpoint verify: ok={report.ok} passes={report.passes} "
+              f"errors={len(report.errors)} warnings={len(report.warnings)}"
+              f"; {verify_s:.3f} s wall")
+        if not report.ok or "kvcache" not in report.passes:
+            raise AssertionError(report.render())
+
+        restored3, launches3, wall3 = counted_restore(mgr, 1, dev)
+        equal3 = same_tree(restored3, tree3)
+        dms, cms, events = device_parts(
+            lambda: mgr.restore_packed(1, device=dev))
+        ums, _ = device_call(
+            lambda: unpack_streams(tree3.manifest, tree3.streams,
+                                   tree3.other, device=dev), iters=2)
+        rest_ms = None if dms is None else dms - cms
+        print(f"checkpoint restore int3: restore_packed ({restored3.provenance}"
+              f") {wall3:.1f} ms wall, device {fmt_ms(dms)} ms over "
+              f"{events} device events, of which memory copies "
+              f"{fmt_ms(cms)} ms and the rest {fmt_ms(rest_ms)} ms "
+              f"(unpack_streams of the resident tree {fmt_ms(ums)} ms); "
+              f"{launches3} decode_layout_fused launches; streams, scales "
+              f"and unquantized leaves equal to the saved tree's: {equal3}")
+        if launches3 != tree3.n_layers or not equal3:
+            raise AssertionError("restore int3 differs from the saved tree")
+        kv = mgr.restore_kv(1, device=dev)
+        provenance = kv.provenance
+        pages_equal = torch.equal(kv.pages, cache.pages)
+        print(f"checkpoint restore_kv: provenance={provenance} pages "
+              f"{tuple(kv.pages.shape)} equal to the cache's: {pages_equal}")
+        if provenance != "checkpoint" or not pages_equal:
+            raise AssertionError("restore_kv differs from the cache")
+
+        rest = {"pos": state["pos"].clone(), "packed_kv": kv}
+        want, state = decode_steps(cfg, tree3, state, toks[DECODE_STEPS:])
+        got, rest = decode_steps(cfg, restored3, rest, toks[DECODE_STEPS:])
+        on3 = sum(torch.equal(g, w) for g, w in zip(got, want))
+        print(f"checkpoint decode on: {on3}/{len(want)} steps from the "
+              f"restored tree and cache bit-equal to the original's")
+        if on3 != len(want):
+            raise AssertionError("decode after restore differs")
+
+        mgr.save_packed(2, tree4)
+        restored4, launches4, wall4 = counted_restore(mgr, 2, dev)
+        equal4 = same_tree(restored4, tree4)
+        views4 = sorted(restored4.packed) == sorted(tree4.packed) and all(
+            torch.equal(restored4.packed[k], v)
+            for k, v in tree4.packed.items())
+        logits4 = []
+        pm.launches = 0
+        for t4 in (tree4, restored4):
+            ad4 = PackedAdapter(cfg, t4, kv="packed", kv_bits=4)
+            out, _ = decode_steps(cfg, t4, ad4.init_state(b, 256), toks[:2])
+            logits4.append(out)
+        on4 = sum(torch.equal(g, w) for g, w in zip(*logits4))
+        print(f"checkpoint restore int4 (no KV): {wall4:.1f} ms wall, "
+              f"{launches4} decode_layout_fused launches; tree equal "
+              f"{equal4}, lane-packed views equal {views4}; 2 decode steps "
+              f"through packed_matmul ({pm.launches} launches) from the "
+              f"restored and the original tree: {on4}/2 bit-equal")
+        if launches4 != tree4.n_layers or not (equal4 and views4) \
+                or on4 != 2 or pm.launches != 2 * 2 * 7 * cfg.n_layers:
+            raise AssertionError("restore int4 differs from the tree")
+        del restored4
+
+        meta = json.loads((path / "manifest.json").read_text())
+        stream_file = f"arr_{meta['paths'].index('streams'):05d}.npy"
+        refusals = {}
+        for step, rule in ((3, "manifest/stream-digest"),
+                           (4, "manifest/stream-shape")):
+            bad = tmp / f"step_{step:08d}"
+            shutil.copytree(path, bad)
+            arr = np.load(bad / stream_file)
+            if step == 3:
+                arr.flat[12345] ^= np.uint8(0x10)
+            else:
+                arr = arr[:, :-1]
+            np.save(bad / stream_file, arr)
+            refusals[rule] = refused(mgr, step, rule, dev)
+            what = "a flipped bit" if step == 3 else "a truncated stream"
+            print(f"checkpoint refused ({what}): {refusals[rule]}")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    # the restored tree served through an uploader and from its resident
+    # streams in turns (U R R U U R): one serve's ms per step moves with
+    # the host's load by more than the uploader's cost
+    per_step = {"stream_attention": cfg.n_layers,
+                "stream_matmul": 7 * cfg.n_layers}
+    ms_up, ms_res, stats, tokens_equal = [], [], [], True
+    for through in (True, False, False, True, True, False):
+        up = StreamUploader(restored3) if through else None
+        counts, tokens, ms = serve(
+            cfg, restored3, prompts, 3, per_step, uploader=up,
+            label=" (restored tree, through the StreamUploader)" if through
+            else " (restored tree, resident streams)")
+        tokens_equal = tokens_equal and tokens == resident[0]
+        if through:
+            up.close()
+            ms_up.append(ms)
+            stats.append(up.stats())
+            side = up.stream
+        else:
+            ms_res.append(ms)
+    profile_steps(Engine(PackedAdapter(cfg, restored3, kv="packed",
+                                       kv_bits=3,
+                                       uploader=StreamUploader(restored3)),
+                         EngineConfig(batch_size=4, max_seq=256,
+                                      max_backlog=None)),
+                  prompts, "int3 weights / int3 KV, restored, through the "
+                  "StreamUploader")
+    # the uploader's copies, one a layer from its pinned words, back to
+    # back on its side stream into buffers allocated beforehand: the host
+    # enqueues a copy faster than the card runs it, so the events time
+    # the copies and not the host
+    words = [restored3.host_stream_words(la)
+             for la in range(restored3.n_layers)]
+    bufs = [torch.empty_like(w, device=dev) for w in words]
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    with torch.cuda.stream(side):
+        start.record(side)
+        for buf, w in zip(bufs, words):
+            buf.copy_(w, non_blocking=True)
+        end.record(side)
+    torch.cuda.synchronize()
+    upload_ms = start.elapsed_time(end) / len(words)
+    layer_bytes = words[0].numel() * words[0].element_size()
+    bound = layer_bytes / PCIE_BYTES_PER_S * 1e3
+    del bufs
+    print(f"serve through the StreamUploader: tokens equal to the resident "
+          f"int3 serve's: {tokens_equal}; ms/decode step through the "
+          f"uploader {[round(x, 3) for x in ms_up]}, median "
+          f"{np.median(ms_up):.3f}; from the restored tree's resident "
+          f"streams {[round(x, 3) for x in ms_res]}, median "
+          f"{np.median(ms_res):.3f} (the original tree's serve "
+          f"{resident[1]:.3f}); uploader {stats[0]}; "
+          f"{stats[0]['bytes_uploaded'] / max(1, stats[0]['uploads']):.0f} "
+          f"bytes an upload; one layer's upload on the side stream "
+          f"{upload_ms:.4f} ms, bound {bound:.4f} ms ({layer_bytes} bytes "
+          f"at {PCIE_BYTES_PER_S / 1e9:.0f} GB/s, PCIe Gen5 x16 one "
+          f"direction by the data sheet)")
+    if not tokens_equal or any(st["sync_fetches"] != 1 for st in stats):
+        raise AssertionError("uploader serve differs from the resident "
+                             f"serve (uploader counters {stats})")
+    return {"save_bytes": n_bytes, "save_s": save_s, "verify_s": verify_s,
+            "verify_passes": report.passes,
+            "restore_int3_wall_ms": wall3, "restore_int3_device_ms": dms,
+            "restore_int3_copy_ms": cms, "restore_int3_rest_ms": rest_ms,
+            "unpack_int3_device_ms": ums,
+            "restore_int3_decode_launches": launches3,
+            "restore_int4_wall_ms": wall4,
+            "restore_int4_decode_launches": launches4,
+            "kv_provenance": provenance, "kv_pages_equal": pages_equal,
+            "decode_on_bit_equal": f"{on3}/{len(want)}",
+            "int4_decode_bit_equal": f"{on4}/2",
+            "refused": sorted(refusals),
+            "uploader_serve_launches": counts,
+            "uploader_tokens_equal": tokens_equal,
+            "uploader_ms_per_step": ms_up,
+            "restored_resident_ms_per_step": ms_res,
+            "resident_ms_per_step": resident[1],
+            "uploader_stats": stats[0], "upload_ms_per_layer": upload_ms,
+            "upload_bound_ms": bound}
 
 
 def layer_mats(cfg) -> dict[str, tuple[int, int]]:
@@ -1747,7 +2101,7 @@ def main() -> int:
             if "registers" in line or "spill" in line:
                 print(f"ptxas {name}: {line.strip()}")
     dev = torch.device("cuda")
-    kernels = run(SMOLLM_135M, dev)
+    kernels, ckpt = run(SMOLLM_135M, dev)
     torch.cuda.empty_cache()       # the smollm trees are gone with run()
     cfg, cuts = jamba_config()
     row, launches = run_jamba(cfg, cuts, dev)
@@ -1755,6 +2109,7 @@ def main() -> int:
                     "source": "src/repro_torch/csrc/ssd_scan.cu",
                     "replaces": "src/repro/kernels/linear_scan.py:92",
                     "launches": launches, **row})
+    print(json.dumps({"checkpoint": ckpt}))
     print(json.dumps({"kernels": kernels}))
     print(f"card: {card}")
     print(json.dumps({"ok": True, "device": {
@@ -1763,10 +2118,10 @@ def main() -> int:
     return 0
 
 
-def run(cfg, dev) -> list[dict]:
+def run(cfg, dev) -> tuple[list[dict], dict]:
     """Every smollm phase after the build, on ``cfg`` (smollm-135m at full
     width and depth from :func:`main`); returns the ``kernels`` rows of
-    its six kernels."""
+    its six kernels and the checkpoint phase's figures."""
     import torch
 
     from repro_torch.engine import Engine, EngineConfig, PackedAdapter
@@ -1809,11 +2164,14 @@ def run(cfg, dev) -> list[dict]:
                for _ in range(8)]
     per_layer = {"stream_attention": cfg.n_layers}
     decode_check(cfg, tree4, rng, dev, kv_bits=4)
-    counts4 = serve(cfg, tree4, prompts, 4,
-                    {**per_layer, "packed_matmul": 7 * cfg.n_layers})
+    counts4, _, _ = serve(cfg, tree4, prompts, 4,
+                          {**per_layer, "packed_matmul": 7 * cfg.n_layers})
     decode_check(cfg, tree, rng, dev, kv_bits=3)
-    counts3 = serve(cfg, tree, prompts, 3,
-                    {**per_layer, "stream_matmul": 7 * cfg.n_layers})
+    counts3, tokens3, ms3 = serve(
+        cfg, tree, prompts, 3,
+        {**per_layer, "stream_matmul": 7 * cfg.n_layers})
+    ckpt = checkpoint_phase(cfg, tree, tree4, prompts, dev,
+                            (tokens3, ms3))
     profile_steps(Engine(PackedAdapter(cfg, tree, kv="packed", kv_bits=3),
                          EngineConfig(batch_size=4, max_seq=256,
                                       max_backlog=None)),
@@ -1850,7 +2208,7 @@ def run(cfg, dev) -> list[dict]:
         kernels.append({"name": name, "route": "cuda", "source": src,
                         "replaces": replaces, "launches": launches[name],
                         **row})
-    return kernels
+    return kernels, ckpt
 
 
 if __name__ == "__main__":

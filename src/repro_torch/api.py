@@ -29,8 +29,9 @@ Two registries make the pipeline pluggable:
   on the card unless given ``device="cpu"``.
 
 Scheduling routes through the process-wide layout cache by default.
-The reference's ``Plan.verify`` (which needs the analysis package),
-``Plan.stream_tables`` and ``Plan.matmul_direct`` are not carried over;
+``Plan.verify`` runs the static analyzer (:mod:`repro_torch.analysis`).
+The reference's ``Plan.stream_tables`` and ``Plan.matmul_direct`` are
+not carried over;
 :meth:`repro_torch.tree.PackedTree.matmul_direct` serves stream-direct
 matmuls.
 """
@@ -332,6 +333,22 @@ class Plan:
         """Validate the layout (legal, complete transfer plan); chainable."""
         self.layout.validate()
         return self
+
+    def verify(self, *, raise_on_error: bool = True, passes=None):
+        """Run the static layout analyzer over this plan's layout and
+        lowered tables (:mod:`repro_torch.analysis`).
+
+        Returns the :class:`~repro_torch.analysis.Report`; with
+        ``raise_on_error=True`` (default) any error-severity finding
+        raises :class:`~repro_torch.analysis.AnalysisError` naming the
+        rule — "verify before you serve".
+        """
+        from .analysis import verify_layout  # lazy: keep api import lean
+
+        report = verify_layout(
+            self.layout, program=self.exec_program, passes=passes,
+            subject=f"Plan[{self.strategy}]")
+        return report.raise_if_errors() if raise_on_error else report
 
     def render(self, max_cycles: int = 64) -> str:
         """ASCII rendering in the style of the paper's Figs. 3-5."""

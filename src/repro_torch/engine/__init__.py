@@ -1,5 +1,6 @@
 """repro_torch.engine: continuous-batching serving engine over packed or
-dense weights (port of ``src/repro/engine``: queue, metrics, scheduler)."""
+dense weights (port of ``src/repro/engine``: queue, metrics, scheduler,
+the stream uploader)."""
 from .metrics import EngineMetrics, RequestTiming, percentile
 from .queue import (
     REJECT_BACKLOG_FULL,
@@ -17,10 +18,12 @@ from .scheduler import (
     ServeStats,
     greedy_sampler,
 )
+from .streams import BufferRing, StreamUploader
 
 __all__ = [
     "Admission",
     "AdmissionQueue",
+    "BufferRing",
     "DenseAdapter",
     "Engine",
     "EngineConfig",
@@ -32,6 +35,7 @@ __all__ = [
     "RequestTiming",
     "STAGES",
     "ServeStats",
+    "StreamUploader",
     "greedy_sampler",
     "percentile",
 ]

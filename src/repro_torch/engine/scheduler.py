@@ -2,9 +2,9 @@
 
 Port of ``src/repro/engine/scheduler.py``: :class:`Engine`,
 :class:`EngineConfig`, :func:`greedy_sampler`, :class:`DenseAdapter`
-(``:131-166``) and :class:`PackedAdapter` (``kv="packed" | "dense"``),
-with a torch :func:`_reset_state_slot` in place of the reference's
-``.at[].set``.  The stream uploader comes with a later slice.
+(``:131-166``) and :class:`PackedAdapter` (``kv="packed" | "dense"``,
+``uploader=``), with a torch :func:`_reset_state_slot` in place of the
+reference's ``.at[].set``.
 
 The engine drives a fixed pool of decode *slots* through four stages
 every step — admit (queue -> free slots), prefill (assemble the ragged
@@ -129,11 +129,14 @@ class PackedAdapter:
     Each step runs ``packed_decode_step`` with ``slot_ids`` = the active
     slots only.  ``kv="packed"`` keeps the KV cache as an Iris-packed
     :class:`~repro_torch.kvcache.PackedKVCache` (``kv_attention="dense"``
-    decodes it to a dense oracle first).  Everything runs on the tree's
-    device.
+    decodes it to a dense oracle first).  With ``uploader`` set (a
+    :class:`~repro_torch.engine.streams.StreamUploader`), each layer's
+    stream words come through it instead of the tree's resident buffers:
+    the next layer's upload overlaps this layer's matmuls.  Everything
+    runs on the tree's device.
     """
 
-    def __init__(self, cfg, tree, *, weights: str = "auto",
+    def __init__(self, cfg, tree, *, weights: str = "auto", uploader=None,
                  kv: str = "dense", kv_attention: str = "stream",
                  kv_bits: int | None = None, page_tokens: int = 8,
                  kv_m: int = 512) -> None:
@@ -146,6 +149,7 @@ class PackedAdapter:
         self.cfg = cfg
         self.tree = tree
         self.weights = weights
+        self.uploader = uploader
         self.kv = kv
         self.kv_attention = kv_attention
         self.kv_bits = kv_bits
@@ -189,8 +193,15 @@ class PackedAdapter:
             weights=self.weights,
             slot_ids=torch.as_tensor(list(active), dtype=torch.int64,
                                      device=dev),
+            stream_source=self.uploader,
             kv=self.kv, kv_attention=self.kv_attention)
         return logits.to(torch.float32).cpu().numpy(), state
+
+    def stream_bytes_uploaded(self) -> int | None:
+        return self.uploader.bytes_uploaded if self.uploader else None
+
+    def uploader_stats(self) -> dict | None:
+        return self.uploader.stats() if self.uploader else None
 
 
 class Engine:
@@ -225,6 +236,7 @@ class Engine:
         for stage, fns in (hooks or {}).items():
             for fn in fns:
                 self.add_hook(stage, fn)
+        self._stream_bytes_seen = 0
         self.admission_order: list[int] = []
         self.completion_order: list[int] = []
 
@@ -303,6 +315,16 @@ class Engine:
                                                active)
         ctx["logits"] = logits
         self.metrics.record_step(len(active))
+        bytes_fn = getattr(self.adapter, "stream_bytes_uploaded", None)
+        uploaded = bytes_fn() if bytes_fn is not None else None
+        if uploaded is not None:
+            self.metrics.record_stream_bytes(
+                uploaded - self._stream_bytes_seen)
+            self._stream_bytes_seen = uploaded
+        stats_fn = getattr(self.adapter, "uploader_stats", None)
+        stats = stats_fn() if stats_fn is not None else None
+        if stats is not None:
+            self.metrics.record_uploader_stats(stats)
 
     def _stage_retire(self, ctx: dict) -> None:
         """Per-slot sampling, completion checks, slot release."""

@@ -13,7 +13,8 @@ vector, gather/shift/OR them through the token-masked append tables, and
 read-modify-write ``new = (old & ~mask) | value``.  Where the reference
 rebuilds the whole page buffer functionally (``pages.at[layer].set``),
 the port writes ``pages[layer, slot_ids, page]`` **in place**: ``append``,
-``reset`` and ``evict`` mutate this cache and return it.
+``reset`` and ``evict`` mutate this cache and return it.  ``verify``
+runs the static analyzer's KV-cache passes on a host copy of the pages.
 """
 from __future__ import annotations
 
@@ -330,3 +331,10 @@ class PackedKVCache:
     def host_pages(self) -> np.ndarray:
         """The pages as host uint32 words."""
         return self.pages.cpu().numpy().view(np.uint32)
+
+    def verify(self, **kw):
+        """Run :func:`repro_torch.analysis.verify_kvcache` over this cache
+        (on one host copy of its pages); returns the report."""
+        from .. import analysis  # lazy
+
+        return analysis.verify_kvcache(self, **kw)

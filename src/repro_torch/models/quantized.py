@@ -2,8 +2,8 @@
 
 Port of ``src/repro/models/quantized.py:39-44, 73-293``:
 :func:`quantizable`, :func:`_pmm`, :func:`_pmm_direct`,
-:func:`packed_decode_step` (``weights``, ``slot_ids``, ``kv``,
-``kv_attention``) and :func:`bytes_per_token_report`.  A weight matmul
+:func:`packed_decode_step` (``weights``, ``slot_ids``, ``stream_source``,
+``kv``, ``kv_attention``) and :func:`bytes_per_token_report`.  A weight matmul
 reads the tree's lane-packed kernel views (``packed_matmul``), or gathers
 codes and scales straight out of the layer's packed stream
 (``stream_matmul``), routed as the reference routes them; with
@@ -57,13 +57,16 @@ def _pmm(x2d: torch.Tensor, pw: torch.Tensor, sc: torch.Tensor, spec, *,
 
 
 def _pmm_direct(x2d: torch.Tensor, pp, name: str, layer: int, *,
+                words: torch.Tensor | None = None,
                 plain: bool = False) -> torch.Tensor:
-    """Stream-direct ``x2d @ dequant(name)`` for layer ``layer``."""
-    return pp.matmul_direct(x2d, name, layer, plain=plain)
+    """Stream-direct ``x2d @ dequant(name)`` for layer ``layer``, from
+    ``words`` when given (else the tree's resident stream)."""
+    return pp.matmul_direct(x2d, name, layer, words=words, plain=plain)
 
 
 def packed_decode_step(cfg, pp, state: dict, tokens: torch.Tensor, *,
                        weights: str = "auto", slot_ids=None,
+                       stream_source=None,
                        kv: str = "dense", kv_attention: str = "stream",
                        plain: bool = False
                        ) -> tuple[torch.Tensor, dict]:
@@ -75,7 +78,11 @@ def packed_decode_step(cfg, pp, state: dict, tokens: torch.Tensor, *,
     width), ``"auto"`` takes the views when the tree has them and the
     streams otherwise.
     ``slot_ids``: the active cache rows aligned with ``tokens`` (ragged
-    M); ``None`` steps every row.  ``kv``: ``"dense"`` bf16 caches or
+    M); ``None`` steps every row.  ``stream_source`` (stream path only)
+    maps a layer index to that layer's u32 stream words on the device —
+    e.g. a :class:`~repro_torch.engine.streams.StreamUploader` staging
+    uploads ahead of compute; ``None`` reads the tree's resident
+    buffers.  ``kv``: ``"dense"`` bf16 caches or
     ``"packed"`` (``state["packed_kv"]``), read by the stream attention
     kernel (``kv_attention="stream"``) or a materialized dequant oracle
     (``"dense"``).  ``plain=True`` runs the kernels' plain versions on the
@@ -95,6 +102,10 @@ def packed_decode_step(cfg, pp, state: dict, tokens: torch.Tensor, *,
         raise ValueError(
             "tree has no lane-packed kernel views (built with "
             "with_kernel_views=False); serve with weights='stream'")
+    if stream_source is not None and not use_stream:
+        raise ValueError(
+            "stream_source only applies to the stream-direct path "
+            "(weights='stream', or 'auto' on a kernel-view-free tree)")
     kvc = None
     if kv == "packed":
         kvc = state.get("packed_kv")
@@ -119,11 +130,12 @@ def packed_decode_step(cfg, pp, state: dict, tokens: torch.Tensor, *,
     def mm(name, layer, x2d):
         if use_stream:
             return _pmm_direct(x2d.to(torch.float32), pp, name, layer,
-                               plain=plain)
+                               words=words, plain=plain)
         return _pmm(x2d.to(torch.float32), pp.packed[name][layer],
                     pp.scales[name][layer], pp.spec, plain=plain)
 
     for layer in range(cfg.n_layers):
+        words = stream_source(layer) if stream_source is not None else None
         hnorm = apply_norm(cfg, {"scale": pp.other["norm1"]["scale"][layer]},
                            x)
         q = mm("attn/wq", layer, hnorm).reshape(b, 1, h, hd)

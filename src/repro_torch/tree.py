@@ -10,7 +10,11 @@ its plain version on the CPU) and returns a :class:`PackedTree`.
 :func:`unpack_streams` is the inverse: it rebinds the layout without
 scheduling and rebuilds scales and kernel views from the stream bytes,
 decoded by the fused decode kernel on the tree's device.
-:class:`LayoutManifest` has the reference's JSON.
+:class:`LayoutManifest` has the reference's JSON.  ``PackedTree.verify``
+runs the static analyzer (:mod:`repro_torch.analysis`) over the tree, and
+``PackedTree.host_stream_words`` hands a layer's stream to the
+:class:`~repro_torch.engine.streams.StreamUploader` from pinned host
+memory.
 
 Two weight paths serve a tree, as in the reference.  Lane-packable
 widths (``bits`` in ``SUPPORTED_BITS`` = 2, 4, 8) get lane-packed kernel
@@ -24,6 +28,7 @@ from __future__ import annotations
 import dataclasses
 import json
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -178,6 +183,7 @@ class PackedTree:
         self._stream_tabs: dict = {}
         self._device_tabs: dict = {}
         self._words: torch.Tensor | None = None
+        self._host_words: torch.Tensor | None = None
 
     @property
     def device(self) -> torch.device:
@@ -274,6 +280,24 @@ class PackedTree:
     def layer_stream_words(self, layer: int) -> torch.Tensor:
         return self.stream_words()[layer]
 
+    def host_stream_words(self, layer: int) -> torch.Tensor:
+        """Layer ``layer``'s stream as flat host u32 words (int32 bits,
+        ``prog.buffer_words32``): the upload side of
+        :meth:`layer_stream_words`, read by the
+        :class:`~repro_torch.engine.streams.StreamUploader`.  The first
+        call copies every layer's stream from the tree's device once and
+        keeps the words, in pinned memory when the tree lives on the card
+        (so uploads can run asynchronously)."""
+        if self._host_words is None:
+            prog = self.exec_program()
+            host = self.streams.cpu().numpy()
+            words = torch.from_numpy(np.stack([
+                prog.buffer_words32(host[la]).reshape(-1)
+                for la in range(self.n_layers)]).view(np.int32))
+            self._host_words = words.pin_memory() \
+                if self.device.type == "cuda" else words
+        return self._host_words[layer]
+
     def matmul_direct(self, x: torch.Tensor, key: str, layer: int, *,
                       words: torch.Tensor | None = None,
                       plain: bool = False) -> torch.Tensor:
@@ -287,6 +311,20 @@ class PackedTree:
         fn = stream_matmul_plain if plain else stream_matmul
         return fn(x, words, w_tab, s_tab, bits=tabs.bits,
                   group_size=tabs.group_size)
+
+    def verify(self, *, raise_on_error: bool = True, passes=None):
+        """Statically verify this tree before serving or checkpointing.
+
+        Runs the :mod:`repro_torch.analysis` pass set over the manifest,
+        the layout it rebinds, the lowered tables and the stream buffers
+        (one host copy).  Returns the report; with ``raise_on_error=True``
+        (default) any error-severity finding raises
+        :class:`~repro_torch.analysis.AnalysisError`.
+        """
+        from .analysis import verify_tree  # lazy: off the serving import path
+
+        report = verify_tree(self, passes=passes)
+        return report.raise_if_errors() if raise_on_error else report
 
     def summary(self) -> str:
         """One-line report: B_eff, buffer bytes, provenance."""

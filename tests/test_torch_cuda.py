@@ -674,3 +674,109 @@ def test_pack_pieces_many_arrays_and_strided_streams(cuda):
         assert lp.launches == before + 1, what
         assert np.array_equal(got.cpu().numpy(), want), what
         assert torch.equal(got.cpu(), lp.pack_pieces(prog, streams)), what
+
+
+@pytest.fixture(scope="module")
+def int3_stack():
+    """Two smollm-135m layers at full width packed at int3 (stream-direct
+    serving), with a packed int3 KV cache after 3 decode steps."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
+    import dataclasses
+
+    from repro_torch.configs import SMOLLM_135M
+    from repro_torch.engine import PackedAdapter
+    from repro_torch.models.params import init_params
+    from repro_torch.quant import QuantSpec
+    from repro_torch.tree import pack_tree
+
+    dev = torch.device("cuda")
+    cfg = dataclasses.replace(SMOLLM_135M, n_layers=2)
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(1),
+                         device=dev)
+    tree = pack_tree(cfg, params, QuantSpec(bits=3, group_size=32),
+                     device=dev)
+    adapter = PackedAdapter(cfg, tree, kv="packed", kv_bits=3)
+    state = adapter.init_state(4, 64)
+    for t in range(3):
+        _, state = adapter.step(state, np.array([1 + t, 2, 3, 4]),
+                                [0, 1, 2, 3])
+    return cfg, tree, state
+
+
+@pytest.mark.parametrize("which", ["int3+kv", "int4"])
+def test_restore_packed_on_the_card_equals_the_tree(cuda, which, int3_stack,
+                                                    int4_layer, tmp_path):
+    """save_packed -> restore_packed on the card: one decode_layout_fused
+    launch a layer, and streams, scales, views, the unquantized leaves
+    and the KV pages equal to what was saved, bit for bit."""
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.kernels import layout_decode as ld
+
+    if which == "int4":
+        tree, kvc = int4_layer, None
+    else:
+        _cfg, tree, state = int3_stack
+        kvc = state["packed_kv"]
+    mgr = CheckpointManager(tmp_path)
+    mgr.save_packed(0, tree, kv=kvc)
+    assert mgr.verify_packed().ok
+    before = ld.fused_launches
+    got, _ = mgr.restore_packed()
+    torch.cuda.synchronize()
+    assert ld.fused_launches == before + tree.n_layers
+    assert got.device.type == "cuda"
+    assert torch.equal(got.streams, tree.streams)
+    for key, v in tree.scales.items():
+        assert torch.equal(got.scales[key].view(torch.int16),
+                           v.view(torch.int16)), key
+    assert sorted(got.packed) == sorted(tree.packed)
+    for key, v in tree.packed.items():
+        assert torch.equal(got.packed[key], v), key
+    for key in ("norm1", "norm2", "final_norm"):
+        assert torch.equal(got.other[key]["scale"].view(torch.int16),
+                           tree.other[key]["scale"].view(torch.int16))
+    assert torch.equal(got.other["embed"].view(torch.int16),
+                       tree.other["embed"].view(torch.int16))
+    kv = mgr.restore_kv()
+    if kvc is None:
+        assert kv is None
+    else:
+        assert kv.provenance == "checkpoint" and kv.device.type == "cuda"
+        assert torch.equal(kv.pages, kvc.pages)
+
+
+def test_uploader_on_the_card_uses_a_side_stream(cuda, int3_stack):
+    """The uploader's words on the card equal the resident words; the
+    copies run on a stream other than the current one, from pinned host
+    memory, and decode through it gives the resident logits bit for
+    bit."""
+    from repro_torch.engine import StreamUploader
+    from repro_torch.models.quantized import packed_decode_step
+
+    cfg, tree, state = int3_stack
+    with StreamUploader(tree) as up:
+        assert up.device.type == "cuda"
+        assert up.stream.cuda_stream != \
+            torch.cuda.current_stream().cuda_stream
+        assert tree.host_stream_words(0).is_pinned()
+        for _lap in range(2):
+            for layer in range(tree.n_layers):
+                got = up(layer)
+                want = tree.layer_stream_words(layer)
+                assert got.device.type == "cuda"
+                assert got.data_ptr() != want.data_ptr()
+                assert torch.equal(got, want), layer
+        assert up.sync_fetches == 1
+        assert up.prefetch_hits == 2 * tree.n_layers - 1
+        toks = torch.tensor([5, 6, 7, 8], device=cuda)
+        pos = state["pos"].clone()
+        kvc = state["packed_kv"]
+        pages = kvc.pages.clone()
+        want, _ = packed_decode_step(cfg, tree, state, toks, kv="packed")
+        kvc.pages.copy_(pages)
+        got, _ = packed_decode_step(cfg, tree, dict(state, pos=pos), toks,
+                                    kv="packed", stream_source=up)
+        torch.cuda.synchronize()
+        kvc.pages.copy_(pages)           # the fixture's cache as it was
+    assert torch.equal(got, want)
