@@ -96,9 +96,10 @@
    int3 and int4.
 9. Frees the smollm trees, then jamba-1.5-large-398b at its full widths,
    cut to one period (``n_layers`` 72 -> 8: 7 Mamba sublayers and 1 GQA
-   attention sublayer) and ``moe=None`` (every sublayer takes the dense
-   MLP of d_ff 24576; the MoE sublayers would not fit one card beside the
-   rest): 10.77 B seeded random bf16 parameters, 21.5 GB.
+   attention sublayer) and ``moe=None``, a memory cut (every sublayer
+   takes the dense MLP of d_ff 24576; the period's four MoE sublayers,
+   77 GB, would not fit one card beside the rest): 10.77 B seeded random
+   bf16 parameters, 21.5 GB.
    ``ssd_scan`` against its plain version on the layer-0 Mamba inputs of
    the real prefill (bf16, B=2, T=1024, H=256, dk=dv=64), on a ragged
    f32 case (T=1000, ``state0``, final state) and at Mamba-2's d_state
@@ -110,12 +111,35 @@
    equal at every position; ``Engine(DenseAdapter)`` with 8 requests,
    batch 4, max_seq 256, 8 new tokens each, against the decode step's
    bytes bound.  Peak device memory is printed for each jamba phase.
-10. Prints one JSON ``checkpoint`` line (the checkpoint phase's
-    figures) and one JSON ``kernels`` line (seven kernels, each with its
-    ``device_ms``; the matmuls and ``stream_attention`` also with
-    ``library_device_ms``; ``stream_attention`` with its smax-2048 and
-    rep-12 points, ``ssd_scan`` with its dk=128 point),
-    the card line again, and last ``{"ok": true, "device": {...}}``.
+10. stablelm-3b at full width and depth (32 layers, d_model 2560, 32/32
+    heads of 80, d_ff 6912, vocab 50304, LayerNorm, biased projections,
+    untied; 2.80 B seeded parameters with seeded nonzero biases and norm
+    biases): ``pack_tree`` at int3 and at int4 on the card (32
+    ``pack_layout_fused`` launches each, counted; the bias and norm-bias
+    leaves carried dense); ``stream_matmul`` (int3) and ``packed_matmul``
+    (int4) on one layer's 7 matrices at M=4 and ``stream_attention`` at
+    B=4, 32/32 heads of 80, smax 256, each against its plain version and
+    beside its library call and bound; the 8-step ragged decode check of
+    each tree (int4 also packed == stream bit for bit); the int4 and int3
+    serves (batch 4, 8 requests of 16 new tokens, 224 matmul and 32
+    ``stream_attention`` launches a step, counted); a profiled window of
+    4 int3 steps.
+11. moonshot-v1-16b-a3b at full width (d_model 2048, 16/16 heads of 128,
+    64 experts top-6 of d_expert 1408, vocab 163840), cut to 8 layers:
+    the prefill at B=2, T=1024 (finite logits and aux; the share of
+    tokens over capacity by layer), layer 0's ``apply_moe`` against
+    ``apply_moe_reference`` in bf16 at ample capacity, decode == prefill
+    in bf16 at ample capacity, and ``Engine(DenseAdapter)`` with 8
+    requests of 8 new tokens against the bytes of every expert.
+12. Prints each phase's wall seconds, one JSON ``serve`` line (ms per
+    step of stablelm-3b's packed serves and moonshot's), one JSON
+    ``checkpoint`` line (the checkpoint phase's figures) and one JSON
+    ``kernels`` line (seven kernels, each with its ``device_ms``; the
+    matmuls and ``stream_attention`` also with ``library_device_ms`` and
+    a ``stablelm`` entry with that path's launches; ``stream_attention``
+    with its smax-2048 and rep-12 points, ``ssd_scan`` with its dk=128
+    point; ``pack_layout_fused``'s launches include stablelm's 64), the
+    card line again, and last ``{"ok": true, "device": {...}}``.
 
 Any failed check raises, and the script exits non-zero without the last
 line.  Without a CUDA device it exits 2; run alone, outside the
@@ -1707,9 +1731,11 @@ def jamba_config():
 
     cfg = dataclasses.replace(JAMBA_1_5_LARGE, n_layers=8, moe=None)
     cuts = ("n_layers 72 -> 8 (one period: 7 Mamba + 1 GQA attention "
-            "sublayer); moe -> None (every sublayer takes the dense MLP of "
-            f"d_ff {cfg.d_ff}; 16 experts x 3 x 8192 x 24576 bf16 = 19.3 GB "
-            "per MoE sublayer would not fit one card beside the rest)")
+            "sublayer); moe -> None, a memory cut (the port runs MoE "
+            "sublayers, moonshot-v1-16b-a3b's below; here every sublayer "
+            f"takes the dense MLP of d_ff {cfg.d_ff}: the period's 4 MoE "
+            "sublayers, 16 experts x 3 x 8192 x 24576 bf16 = 19.3 GB each, "
+            "77 GB, would not fit one card beside the rest)")
     return cfg, cuts
 
 
@@ -1961,10 +1987,14 @@ def decode_vs_prefill(cfg, params, toks, tol: dict, what: str) -> None:
         raise AssertionError(f"decode != prefill ({what})")
 
 
-def serve_jamba(cfg, params, rng) -> dict:
-    """The main path's serving: Engine(DenseAdapter), 8 requests, batch 4,
-    max_seq 256, prompts of 2-5 tokens, 8 new tokens each; ms per step
-    against the decode step's bytes bound."""
+def serve_dense(cfg, params, rng, label: str = "jamba") -> dict:
+    """The unquantized serving path: Engine(DenseAdapter), 8 requests,
+    batch 4, max_seq 256, prompts of 2-5 tokens, 8 new tokens each; ms per
+    step against the decode step's bytes bound.  A step reads every
+    weight (for a MoE model every expert: the per-row capacity dispatch
+    fills a slot of each) but the embedding table (4 of its rows), and
+    reads and writes the SSM state where there is one; the KV cache is
+    left out, so this is a lower bound."""
     import torch
 
     from repro_torch.engine import (
@@ -1991,24 +2021,23 @@ def serve_jamba(cfg, params, rng) -> dict:
     stats = engine.run_until_drained(max_steps=500)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    # a step reads every weight but the embedding table (4 of its rows),
-    # and reads and writes the SSM state; the KV cache (<= 4.2 MB) is left
-    # out, so this is a lower bound
     w_bytes = sum(x.numel() * x.element_size()
                   for _, _, x in param_leaves(params)) \
         - params["embed"].numel() * params["embed"].element_size() \
         + 4 * cfg.d_model * params["embed"].element_size()
-    ssm = engine.state["ssm"]
-    step_bytes = w_bytes + 2 * ssm.numel() * ssm.element_size()
+    ssm = engine.state.get("ssm")
+    step_bytes = w_bytes + (0 if ssm is None
+                            else 2 * ssm.numel() * ssm.element_size())
     bms = step_bytes / HBM_BYTES_PER_S * 1e3
     per_step = wall / max(1, stats.steps) * 1e3
-    print(f"serve jamba (dense): completed={stats.completed}/"
+    print(f"serve {label} (dense): completed={stats.completed}/"
           f"{len(requests)} steps={stats.steps} "
           f"tokens={stats.tokens_generated} wall={wall:.3f} s "
           f"tokens/s={stats.tokens_generated / wall:.2f} ms/decode step="
           f"{per_step:.3f} (bound {bms:.3f} ms: {step_bytes / 1e9:.2f} GB "
-          f"at 3.35 TB/s, {per_step / bms:.1f}x); ssd_scan launches "
-          f"{ls.launches}; peak device memory {mem_gb():.2f} GB")
+          f"at 3.35 TB/s, {per_step / bms:.1f}x)"
+          + ("" if ssm is None else f"; ssd_scan launches {ls.launches}")
+          + f"; peak device memory {mem_gb():.2f} GB")
     if stats.completed != len(requests):
         raise AssertionError(f"completed {stats.completed}/{len(requests)}")
     for req in requests:
@@ -2016,7 +2045,8 @@ def serve_jamba(cfg, params, rng) -> dict:
                 0 <= t < cfg.vocab_size for t in req.generated):
             raise AssertionError(f"request {req.uid}: bad tokens "
                                  f"{req.generated}")
-    return {"ms_per_step": per_step, "bound_ms": bms}
+    return {"ms_per_step": per_step, "bound_ms": bms,
+            "tokens_per_s": stats.tokens_generated / wall}
 
 
 def run_jamba(cfg, cuts: str, dev) -> tuple[dict, int]:
@@ -2059,7 +2089,7 @@ def run_jamba(cfg, cuts: str, dev) -> tuple[dict, int]:
     short = torch.from_numpy(rng.integers(1, cfg.vocab_size, (2, 16))).to(dev)
     decode_vs_prefill(cfg, params, short,
                       dict(rtol=0.0, atol=DECODE_BF16_ATOL), "bf16")
-    serve_jamba(cfg, params, rng)
+    serve_dense(cfg, params, rng)
     prompts = [rng.integers(1, cfg.vocab_size, int(rng.integers(2, 6)))
                .tolist() for _ in range(4)]
     profile_steps(Engine(DenseAdapter(Model(cfg), params),
@@ -2076,6 +2106,261 @@ def run_jamba(cfg, cuts: str, dev) -> tuple[dict, int]:
     return row, launches
 
 
+#: bias leaves of a parameter tree: the attention's and MLP's biases of a
+#: ``use_bias`` config and the LayerNorm biases
+BIAS_KEYS = ("bias", "bq", "bk", "bv", "bo", "b_gate", "b_up", "b_down")
+#: std of the seeded biases (their inits are zeros, under which a dropped
+#: bias could not show)
+BIAS_STD = 0.2
+#: apply_moe against apply_moe_reference in bf16 at ample capacity: the
+#: same per-expert products (other GEMM shapes, so other f32 summation
+#: orders), each rounded to bf16 before the gated sum; in bf16 ulps of the
+#: largest |y|
+MOE_BF16_ULPS = 4
+
+
+def seed_biases(params, dev) -> int:
+    """Every bias leaf of ``params`` drawn anew, N(0, BIAS_STD) in its
+    dtype, from a seeded generator on ``dev``.  Returns their count."""
+    import torch
+
+    gen = torch.Generator(device=dev).manual_seed(22)
+    n = 0
+    for node, key, val in param_leaves(params):
+        if key in BIAS_KEYS:
+            node[key] = (BIAS_STD * torch.randn(
+                val.shape, generator=gen, device=dev)).to(val.dtype)
+            n += val.numel()
+    return n
+
+
+def run_stablelm(cfg, dev) -> tuple[dict, dict]:
+    """stablelm-3b at full width and depth, LayerNorm and biased, served
+    from Iris streams: seeded weights with seeded biases; ``pack_tree`` at
+    int3 and int4 on the card (one ``pack_layout_fused`` launch a layer,
+    counted); the matmul and attention kernels at its shapes beside their
+    library calls; the 8-step ragged decode check of each tree; both
+    packed serves (counted); a profiled window of the int3 serve.  Returns
+    the kernel rows of its path and their launches."""
+    import torch
+
+    from repro_torch.engine import Engine, EngineConfig, PackedAdapter
+    from repro_torch.models.params import init_params
+    from repro_torch.quant import QuantSpec
+
+    rng = np.random.default_rng(3)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(0),
+                         device=dev)
+    n_bias = seed_biases(params, dev)
+    torch.cuda.synchronize()
+    n_params = sum(x.numel() for _, _, x in param_leaves(params))
+    n_bytes = sum(x.numel() * x.element_size()
+                  for _, _, x in param_leaves(params))
+    print(f"stablelm weights: {cfg.name} ({cfg.n_layers} layers, d_model "
+          f"{cfg.d_model}, {cfg.n_heads}/{cfg.n_kv_heads} heads of "
+          f"{cfg.head_dim}, d_ff {cfg.d_ff}, vocab {cfg.vocab_size}, "
+          f"{cfg.norm}, use_bias={cfg.use_bias}, untied): "
+          f"{n_params / 1e9:.4f} B parameters (param_count "
+          f"{cfg.param_count() / 1e9:.4f} B), {n_bytes / 1e9:.3f} GB, "
+          f"{n_bias} of them seeded biases (std {BIAS_STD}), in "
+          f"{time.perf_counter() - t0:.2f} s; peak device memory "
+          f"{mem_gb():.2f} GB")
+    if n_params != cfg.param_count():
+        raise AssertionError("parameter tree != param_count()")
+    trees, packs = {}, 0
+    for bits in (3, 4):
+        t0 = time.perf_counter()
+        tree, launches, _ = counted_pack_tree(
+            cfg, params, QuantSpec(bits=bits, group_size=32), dev)
+        biases = sorted(k for k in tree.other if "/" in k)
+        same = all(torch.equal(tree.other[k], params["blocks"][0][
+            k.split("/")[0]][k.split("/")[1]]) for k in biases) and all(
+            torch.equal(tree.other[n]["bias"], params["blocks"][0][n]["bias"])
+            for n in ("norm1", "norm2"))
+        print(f"pack {cfg.name} int{bits}: {tree.summary()}; C_max "
+              f"{tree.manifest.c_max}; pack_tree "
+              f"{time.perf_counter() - t0:.2f} s wall with the host's "
+              f"planning and lowering ({launches} pack_layout_fused "
+              f"launches); dense leaves {biases} and the norm biases equal "
+              f"to the weights': {same}")
+        if launches != cfg.n_layers or not same or len(biases) != 7:
+            raise AssertionError(f"pack {cfg.name} int{bits}: {launches} "
+                                 f"launches, biases {biases}, equal {same}")
+        trees[bits] = tree
+        packs += launches
+    del params
+    tree3, tree4 = trees[3], trees[4]
+    tree3.stream_words()
+    rows = {"stream_matmul": check_stream_matmul(tree3, rng, dev),
+            "packed_matmul": check_packed_matmul(tree4, rng, dev),
+            "stream_attention": check_stream_attention(cfg, rng, dev)}
+    prompts = [rng.integers(1, cfg.vocab_size,
+                            int(rng.integers(2, 6))).tolist()
+               for _ in range(8)]
+    per_layer = {"stream_attention": cfg.n_layers}
+    decode_check(cfg, tree4, rng, dev, kv_bits=4)
+    counts4, _, ms4 = serve(cfg, tree4, prompts, 4,
+                            {**per_layer, "packed_matmul": 7 * cfg.n_layers},
+                            label=f" ({cfg.name})")
+    decode_check(cfg, tree3, rng, dev, kv_bits=3)
+    counts3, _, ms3 = serve(cfg, tree3, prompts, 3,
+                            {**per_layer, "stream_matmul": 7 * cfg.n_layers},
+                            label=f" ({cfg.name})")
+    profile_steps(Engine(PackedAdapter(cfg, tree3, kv="packed", kv_bits=3),
+                         EngineConfig(batch_size=4, max_seq=256,
+                                      max_backlog=None)),
+                  prompts, f"{cfg.name} int3 weights / int3 KV")
+    print(f"{cfg.name} per decode step: packed int3 {ms3:.3f} ms, int4 "
+          f"{ms4:.3f} ms; peak device memory {mem_gb():.2f} GB")
+    launches = {"stream_matmul": counts3["stream_matmul"],
+                "stream_attention": counts3["stream_attention"],
+                "packed_matmul": counts4["packed_matmul"],
+                "pack_layout_fused": packs}
+    return rows, {**launches, "ms_per_step": {"int3": ms3, "int4": ms4}}
+
+
+def moonshot_config():
+    """moonshot-v1-16b-a3b at its full widths, cut in depth to fit the
+    card beside the prefill: returns (config, the cuts as text)."""
+    import dataclasses
+
+    from repro_torch.configs import MOONSHOT_V1_16B_A3B
+
+    cfg = dataclasses.replace(MOONSHOT_V1_16B_A3B, n_layers=8)
+    cuts = ("n_layers 48 -> 8 (64 experts x 3 x 2048 x 1408 bf16 = 1.1 GB "
+            "a layer; the depth is cut to keep the whole run well inside "
+            "its time limit)")
+    return cfg, cuts
+
+
+def moe_drops(cfg, params, toks) -> list[float]:
+    """The prefill's share of (token, choice) pairs over capacity, per MoE
+    sublayer, read from the dispatch as the forward runs."""
+    from repro_torch.models import moe
+
+    shares = []
+    real = moe.dispatch
+
+    def counted(*args):
+        out = real(*args)
+        shares.append(float(1.0 - out[2].float().mean()))
+        return out
+
+    moe.dispatch = counted
+    try:
+        from repro_torch.models.model import Model
+
+        Model(cfg).forward(params, {"tokens": toks})
+    finally:
+        moe.dispatch = real
+    return shares
+
+
+def check_moe_layer(cfg, params, dev) -> None:
+    """Layer 0's ``apply_moe`` against ``apply_moe_reference`` in bf16 at
+    ample capacity (capacity factor E / k: no token dropped), on seeded
+    inputs, B=2, T=256."""
+    import torch
+
+    from repro_torch.models import moe
+    from repro_torch.models.transformer import period_params
+
+    p0 = period_params(params["blocks"][0], 0)["moe"]
+    gen = torch.Generator(device=dev).manual_seed(64)
+    x = torch.randn((2, 256, cfg.d_model), generator=gen, device=dev) \
+        .to(torch.bfloat16)
+    got, aux = moe.apply_moe(cfg, p0, x)
+    want = moe.apply_moe_reference(cfg, p0, x)
+    torch.cuda.synchronize()
+    err = float((got.float() - want.float()).abs().max())
+    largest = float(want.float().abs().max())
+    ulp = 2.0 ** (np.floor(np.log2(largest)) - 7)
+    ms = time_ms(lambda: moe.apply_moe(cfg, p0, x), iters=10)
+    oms = time_ms(lambda: moe.apply_moe_reference(cfg, p0, x), iters=3)
+    print(f"apply_moe {cfg.name} layer 0, bf16 B=2 T=256, capacity "
+          f"{moe.moe_capacity(256, cfg)} of 256 (capacity factor "
+          f"{cfg.moe.capacity_factor:.4g}): max|y - oracle| {err:.4g} = "
+          f"{err / ulp:.3g} bf16 ulps of the largest |y| {largest:.4g} "
+          f"(tolerance {MOE_BF16_ULPS}); aux {float(aux):.4f}; {ms:.3f} ms "
+          f"back to back, the oracle (every expert for every token) "
+          f"{oms:.3f} ms")
+    if not torch.isfinite(got).all() or err > MOE_BF16_ULPS * ulp:
+        raise AssertionError(f"apply_moe != apply_moe_reference: {err:.4g}")
+
+
+def run_moonshot(cfg, cuts: str, dev) -> dict:
+    """The MoE slice at ``cfg``: seeded weights; the prefill at B=2,
+    T=1024 (finite logits and aux, the share of tokens dropped); layer 0's
+    ``apply_moe`` against its oracle; decode == prefill in bf16 at ample
+    capacity; the unquantized serve against its bytes bound."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.models.model import Model
+    from repro_torch.models.moe import moe_capacity
+    from repro_torch.models.params import init_params
+
+    rng = np.random.default_rng(5)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(0),
+                         device=dev)
+    torch.cuda.synchronize()
+    n_params = sum(x.numel() for _, _, x in param_leaves(params))
+    n_bytes = sum(x.numel() * x.element_size()
+                  for _, _, x in param_leaves(params))
+    moe = cfg.moe
+    print(f"moonshot weights: {cfg.name} at d_model {cfg.d_model}, "
+          f"{cfg.n_heads}/{cfg.n_kv_heads} heads of {cfg.head_dim}, "
+          f"{moe.n_experts} experts top-{moe.top_k} of d_expert "
+          f"{moe.d_expert} a layer, vocab {cfg.vocab_size}; cuts: {cuts}; "
+          f"{n_params / 1e9:.4f} B parameters (param_count "
+          f"{cfg.param_count() / 1e9:.4f} B, active "
+          f"{cfg.active_param_count() / 1e9:.4f} B), {n_bytes / 1e9:.3f} "
+          f"GB, seeded in {time.perf_counter() - t0:.2f} s; peak device "
+          f"memory {mem_gb():.2f} GB")
+    if n_params != cfg.param_count():
+        raise AssertionError("parameter tree != param_count()")
+    toks = torch.from_numpy(rng.integers(
+        1, cfg.vocab_size, (PREFILL_B, PREFILL_T))).to(dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits, aux, caches = Model(cfg).forward(params, {"tokens": toks},
+                                             collect_cache=True)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    finite = bool(torch.isfinite(logits).all()) and \
+        bool(torch.isfinite(aux))
+    shapes = [tuple(k.shape) for k, _ in caches]
+    drops = moe_drops(cfg, params, toks)
+    print(f"prefill {cfg.name} B={PREFILL_B} T={PREFILL_T} "
+          f"(Model.forward): logits {tuple(logits.shape)} {logits.dtype}, "
+          f"aux {float(aux):.4f} over {cfg.n_layers} MoE layers (1 a layer "
+          f"when the load is even), finite={finite}; caches {shapes}; "
+          f"capacity {moe_capacity(PREFILL_T, cfg)} slots an expert a row "
+          f"(capacity factor {moe.capacity_factor}): share of (token, "
+          f"choice) pairs dropped by layer "
+          f"{[round(d, 3) for d in drops]}; {wall * 1e3:.1f} ms wall (first "
+          f"call); peak device memory {mem_gb():.2f} GB")
+    want = (cfg.n_layers, PREFILL_B, PREFILL_T, cfg.n_kv_heads, cfg.head_dim)
+    if logits.shape != (PREFILL_B, PREFILL_T, cfg.vocab_size) or \
+            not finite or shapes != [want] or float(aux) <= 0:
+        raise AssertionError(f"prefill {cfg.name}: finite {finite}, caches "
+                             f"{shapes}, aux {float(aux)}")
+    del logits, caches
+    ample = dataclasses.replace(cfg, moe=dataclasses.replace(
+        moe, capacity_factor=moe.n_experts / moe.top_k))
+    check_moe_layer(ample, params, dev)
+    short = torch.from_numpy(rng.integers(1, cfg.vocab_size, (2, 16))).to(dev)
+    decode_vs_prefill(ample, params, short,
+                      dict(rtol=0.0, atol=DECODE_BF16_ATOL),
+                      "bf16, capacity factor E / k: no token dropped")
+    return serve_dense(cfg, params, rng, label=cfg.name)
+
+
 def main() -> int:
     import torch
 
@@ -2084,7 +2369,7 @@ def main() -> int:
         return 2
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    from repro_torch.configs import SMOLLM_135M
+    from repro_torch.configs import SMOLLM_135M, STABLELM_3B
     from repro_torch.kernels import build
 
     card = card_line()
@@ -2101,14 +2386,40 @@ def main() -> int:
             if "registers" in line or "spill" in line:
                 print(f"ptxas {name}: {line.strip()}")
     dev = torch.device("cuda")
+    phases = {}
+    t0 = time.perf_counter()
     kernels, ckpt = run(SMOLLM_135M, dev)
+    phases["smollm-135m"] = time.perf_counter() - t0
     torch.cuda.empty_cache()       # the smollm trees are gone with run()
+    t0 = time.perf_counter()
     cfg, cuts = jamba_config()
     row, launches = run_jamba(cfg, cuts, dev)
+    phases["jamba-1.5-large-398b"] = time.perf_counter() - t0
     kernels.append({"name": "ssd_scan", "route": "cuda",
                     "source": "src/repro_torch/csrc/ssd_scan.cu",
                     "replaces": "src/repro/kernels/linear_scan.py:92",
                     "launches": launches, **row})
+    torch.cuda.empty_cache()       # jamba's weights are gone with run_jamba()
+    t0 = time.perf_counter()
+    rows, paths = run_stablelm(STABLELM_3B, dev)
+    phases["stablelm-3b"] = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+    by_name = {k["name"]: k for k in kernels}
+    for name, row in rows.items():
+        by_name[name]["stablelm"] = {**row, "launches": paths[name]}
+    by_name["pack_layout_fused"]["launches"] += paths["pack_layout_fused"]
+    by_name["pack_layout_fused"]["stablelm"] = {
+        "launches": paths["pack_layout_fused"]}
+    t0 = time.perf_counter()
+    cfg, cuts = moonshot_config()
+    moon = run_moonshot(cfg, cuts, dev)
+    phases["moonshot-v1-16b-a3b"] = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+    print("phases (wall s): " + ", ".join(f"{k} {v:.1f}"
+                                          for k, v in phases.items()))
+    print(json.dumps({"serve": {
+        "stablelm_3b": paths["ms_per_step"],
+        "moonshot_v1_16b_a3b": moon}}))
     print(json.dumps({"checkpoint": ckpt}))
     print(json.dumps({"kernels": kernels}))
     print(f"card: {card}")

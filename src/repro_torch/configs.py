@@ -2,12 +2,14 @@
 
 Own copy of ``src/repro/configs/base.py`` (:class:`MoEConfig`,
 :class:`SSMConfig`, :class:`ModelConfig` with its layer-interleave
-helpers and :meth:`ModelConfig.reduced`), of
-``src/repro/configs/smollm_135m.py`` and of
-``src/repro/configs/jamba_1_5_large_398b.py``.  The RWKV, encoder and
-M-RoPE fields come with the families that read them (ROADMAP A13);
-:class:`MoEConfig` is kept as a type so that jamba's configuration reads
-as the reference's, and the model path refuses it.
+helpers and :meth:`ModelConfig.reduced`, :class:`ShapeConfig` and
+:data:`SHAPES`), of :func:`shape_cells`
+(``src/repro/configs/__init__.py:35-42``) and of seven of the
+reference's config modules: ``smollm_135m``, ``mistral_large_123b``,
+``command_r_plus_104b``, ``stablelm_3b``, ``moonshot_v1_16b_a3b``,
+``arctic_480b`` and ``jamba_1_5_large_398b``, each field equal to the
+reference's.  The RWKV, encoder and M-RoPE fields come with the families
+that read them (ROADMAP A13c-e), as do their configs.
 """
 from __future__ import annotations
 
@@ -83,23 +85,49 @@ class ModelConfig:
 
     def param_count(self) -> int:
         """Parameters of the tree that ``models.params.init_params``
-        builds (dense and hybrid families without experts).  Unlike the
-        reference's approximate count it includes each Mamba layer's
-        ``w_bc``, ``w_dt`` and per-head vectors (ROADMAP §C)."""
+        builds.  Unlike the reference's approximate count it includes
+        each Mamba layer's ``w_bc``, ``w_dt`` and per-head vectors
+        (ROADMAP §C), the biases of a ``use_bias`` config and the
+        LayerNorm biases."""
         d, f, v = self.d_model, self.d_ff, self.vocab_size
         hd = self.head_dim
-        total = v * d * (1 if self.tie_embeddings else 2) + d
+        norm = d * (2 if self.norm == "layernorm" else 1)
+        bias = 1 if self.use_bias else 0
+
+        def mlp(ff: int) -> int:
+            return 3 * d * ff + bias * (2 * ff + d)
+
+        total = v * d * (1 if self.tie_embeddings else 2) + norm
         for i in range(self.n_layers):
             if self.layer_is_attn(i):
-                total += d * hd * (self.n_heads + 2 * self.n_kv_heads)
-                total += self.n_heads * hd * d
+                q, kv = self.n_heads * hd, self.n_kv_heads * hd
+                total += d * (q + 2 * kv) + q * d
+                total += bias * (q + 2 * kv + d)
             elif self.ssm is not None:
                 di = self.ssm.expand * d
                 h = di // self.ssm.head_dim
                 total += d * 2 * di + d * 2 * h * self.ssm.d_state + d * h
                 total += 3 * h + di * d
-            total += 3 * d * f + 2 * d
+            if self.layer_is_moe(i):
+                moe = self.moe
+                total += d * moe.n_experts
+                total += moe.n_experts * 3 * d * moe.d_expert
+                if moe.dense_residual_ff:
+                    total += mlp(moe.dense_residual_ff)
+            else:
+                total += mlp(f)
+            total += 2 * norm
         return total
+
+    def active_param_count(self) -> int:
+        """Parameters a token touches (MoE: its top-k experts only)."""
+        if self.moe is None:
+            return self.param_count()
+        moe = self.moe
+        expert = sum(moe.n_experts * 3 * self.d_model * moe.d_expert
+                     for i in range(self.n_layers) if self.layer_is_moe(i))
+        return self.param_count() - int(
+            expert * (1 - moe.top_k / moe.n_experts))
 
     def reduced(self, **overrides) -> "ModelConfig":
         """A small same-family config for CPU tests (the reference's
@@ -165,7 +193,92 @@ JAMBA_1_5_LARGE = ModelConfig(
     max_seq_len=1 << 20,
 )
 
-_REGISTRY = {c.name: c for c in (SMOLLM_135M, JAMBA_1_5_LARGE)}
+#: mistral-large-123b [dense] — hf:mistralai/Mistral-Large-Instruct-2407:
+#: 88L, d_model=12288, 96H (GQA kv=8), d_ff=28672, vocab=32768.
+MISTRAL_LARGE_123B = ModelConfig(
+    name="mistral-large-123b",
+    family="dense",
+    n_layers=88,
+    d_model=12288,
+    n_heads=96,
+    n_kv_heads=8,
+    d_ff=28672,
+    vocab_size=32768,
+    rope_theta=1_000_000.0,
+    max_seq_len=131_072,
+)
+
+#: command-r-plus-104b [dense] — hf:CohereForAI/c4ai-command-r-plus:
+#: 64L, d_model=12288, 96H (GQA kv=8), d_ff=33792, vocab=256000,
+#: LayerNorm, no biases.
+COMMAND_R_PLUS_104B = ModelConfig(
+    name="command-r-plus-104b",
+    family="dense",
+    n_layers=64,
+    d_model=12288,
+    n_heads=96,
+    n_kv_heads=8,
+    d_ff=33792,
+    vocab_size=256000,
+    norm="layernorm",
+    use_bias=False,
+    rope_theta=75_000_000.0,
+    max_seq_len=131_072,
+)
+
+#: stablelm-3b [dense] — hf:stabilityai/stablelm-2 family: 32L,
+#: d_model=2560, 32H (MHA: kv=32), d_ff=6912, vocab=50304, LayerNorm and
+#: biased projections.
+STABLELM_3B = ModelConfig(
+    name="stablelm-3b",
+    family="dense",
+    n_layers=32,
+    d_model=2560,
+    n_heads=32,
+    n_kv_heads=32,
+    d_ff=6912,
+    vocab_size=50304,
+    norm="layernorm",
+    use_bias=True,
+    max_seq_len=32_768,
+)
+
+#: moonshot-v1-16b-a3b [moe] — hf:moonshotai/Moonlight-16B-A3B: 48L,
+#: d_model=2048, 16H (kv=16), d_ff=1408, vocab=163840; MoE 64 experts
+#: top-6 (~3B active parameters per token).
+MOONSHOT_V1_16B_A3B = ModelConfig(
+    name="moonshot-v1-16b-a3b",
+    family="moe",
+    n_layers=48,
+    d_model=2048,
+    n_heads=16,
+    n_kv_heads=16,
+    d_ff=1408,
+    vocab_size=163840,
+    moe=MoEConfig(n_experts=64, top_k=6, d_expert=1408),
+    max_seq_len=131_072,
+)
+
+#: arctic-480b [moe] — hf:Snowflake/snowflake-arctic-base: 35L,
+#: d_model=7168, 56H (GQA kv=8), vocab=32000; MoE 128 experts top-2
+#: (d_expert=4864) with a dense residual MLP in parallel.
+ARCTIC_480B = ModelConfig(
+    name="arctic-480b",
+    family="moe",
+    n_layers=35,
+    d_model=7168,
+    n_heads=56,
+    n_kv_heads=8,
+    d_ff=4864,
+    vocab_size=32000,
+    moe=MoEConfig(n_experts=128, top_k=2, d_expert=4864,
+                  dense_residual_ff=4864),
+    max_seq_len=32_768,
+)
+
+_REGISTRY = {c.name: c for c in (
+    COMMAND_R_PLUS_104B, MISTRAL_LARGE_123B, STABLELM_3B, SMOLLM_135M,
+    ARCTIC_480B, MOONSHOT_V1_16B_A3B, JAMBA_1_5_LARGE)}
 
 ARCH_IDS = tuple(_REGISTRY)
 
@@ -174,3 +287,31 @@ def get_config(arch: str) -> ModelConfig:
     if arch not in _REGISTRY:
         raise KeyError(f"unknown arch {arch!r}; the port has {sorted(_REGISTRY)}")
     return _REGISTRY[arch]
+
+
+@dataclasses.dataclass(frozen=True)
+class ShapeConfig:
+    """One input-shape cell."""
+
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str                     # "train" | "prefill" | "decode"
+
+
+SHAPES: dict[str, ShapeConfig] = {
+    "train_4k": ShapeConfig("train_4k", 4_096, 256, "train"),
+    "prefill_32k": ShapeConfig("prefill_32k", 32_768, 32, "prefill"),
+    "decode_32k": ShapeConfig("decode_32k", 32_768, 128, "decode"),
+    "long_500k": ShapeConfig("long_500k", 524_288, 1, "decode"),
+}
+
+
+def shape_cells(arch: str) -> list[ShapeConfig]:
+    """The runnable shape cells of an arch (``long_500k`` needs
+    sub-quadratic attention)."""
+    cfg = get_config(arch)
+    cells = [SHAPES["train_4k"], SHAPES["prefill_32k"], SHAPES["decode_32k"]]
+    if cfg.subquadratic:
+        cells.append(SHAPES["long_500k"])
+    return cells

@@ -2,6 +2,8 @@
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch smollm-135m \
         --packed --bits 3 [--reduced] [--device cpu]
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch stablelm-3b \
+        --packed --bits 3 [--reduced] [--device cpu]
     PYTHONPATH=src python -m repro_torch.launch.serve \
         --arch jamba-1.5-large-398b --reduced [--device cpu]
 
@@ -12,15 +14,14 @@ Iris streams by :func:`repro_torch.tree.pack_tree`; as in the reference,
 lane-packable widths (2/4/8) serve through the lane-packed kernel views
 (``packed_matmul``) and every other width stream-direct
 (``stream_matmul`` reads the streams), and the KV cache is a packed Iris
-stream read by the stream attention kernel (dense archs only).  Without ``--packed`` the model serves unquantized through
-``DenseAdapter`` (``Model.decode_step``), dense or hybrid; a hybrid's MoE
-sublayers are not ported yet (ROADMAP A13), so the CLI says so and serves
-the config with ``moe=None`` (every sublayer takes the dense MLP).
+stream read by the stream attention kernel (dense archs only, LayerNorm
+and biased ones included).  Without ``--packed`` the model serves
+unquantized through ``DenseAdapter`` (``Model.decode_step``): dense, MoE
+or hybrid, experts included.
 """
 from __future__ import annotations
 
 import argparse
-import dataclasses
 import time
 
 import numpy as np
@@ -89,11 +90,6 @@ def main(argv=None) -> dict:
         cfg = cfg.reduced()
     if args.packed and not quantizable(cfg):
         raise SystemExit(f"{cfg.name}: packed path covers dense archs")
-    if cfg.moe is not None:
-        print(f"{cfg.name}: MoE sublayers are not ported yet (ROADMAP A13); "
-              f"serving moe=None, every sublayer with the dense MLP "
-              f"(d_ff={cfg.d_ff})")
-        cfg = dataclasses.replace(cfg, moe=None)
     model = Model(cfg)
     params = model.init(
         torch.Generator(device=args.device).manual_seed(args.seed),
@@ -115,8 +111,11 @@ def main(argv=None) -> dict:
         adapter = PackedAdapter(cfg, pt, kv="packed", kv_bits=args.bits)
     else:
         n = cfg.param_count()
+        experts = "" if cfg.moe is None else (
+            f", MoE {cfg.moe.n_experts} experts top-{cfg.moe.top_k}, "
+            f"{cfg.active_param_count() / 1e6:.2f} M active")
         print(f"serving path: dense ({cfg.family}, {cfg.n_layers} layers, "
-              f"{n / 1e6:.2f} M parameters, {cfg.dtype})")
+              f"{n / 1e6:.2f} M parameters{experts}, {cfg.dtype})")
         adapter = DenseAdapter(model, params)
     engine = Engine(adapter, EngineConfig(
         batch_size=args.batch_size, max_seq=args.max_seq,

@@ -19,7 +19,9 @@ def build_prefill_step(cfg) -> Callable:
     model = Model(cfg)
 
     def prefill_step(params: dict, batch: dict):
-        return model.forward(params, batch, collect_cache=True)
+        logits, _aux, caches = model.forward(params, batch,
+                                             collect_cache=True)
+        return logits, caches
 
     return prefill_step
 

@@ -82,9 +82,9 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
     return y.to(x.dtype)
 
 
-def init_mlp(gen: torch.Generator, cfg, *, lead: tuple = (),
-             device=None) -> dict:
-    d, f = cfg.d_model, cfg.d_ff
+def init_mlp(gen: torch.Generator, cfg, *, d_ff: int | None = None,
+             lead: tuple = (), device=None) -> dict:
+    d, f = cfg.d_model, d_ff or cfg.d_ff
     dtype = getattr(torch, cfg.dtype)
     p = {
         "w_gate": dense_init(gen, d, f, dtype, lead=lead, device=device),

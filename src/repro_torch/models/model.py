@@ -1,4 +1,4 @@
-"""Top-level model API for the dense and hybrid families.
+"""Top-level model API for the dense, MoE and hybrid families.
 
 Port of ``src/repro/models/model.py``: :class:`Model` with ``init``,
 ``_embed`` (``:74-79``), ``_logits`` (``:81-93``), ``forward``
@@ -9,10 +9,9 @@ reference's is; parameters are the dict tree of
 
 Differences from the reference:
 
-* ``forward`` returns ``(logits, caches)``: the MoE auxiliary loss comes
-  with ``moe.py``, as do ``loss`` (with it), ``encode`` and
-  cross-attention (ROADMAP A13).  Configs with ``moe`` set, or of another
-  family, raise ``NotImplementedError``.
+* ``loss`` comes with training (ROADMAP A14), ``encode`` and
+  cross-attention with the encoder-decoder family (A13d).  Configs of the
+  RWKV, encoder-decoder or VLM families raise ``NotImplementedError``.
 * ``decode_step`` updates the state's caches **in place** and returns the
   same state dict with a new ``pos``; the reference returns new arrays.
 """
@@ -26,6 +25,7 @@ from ..device import resolve_device
 from . import attention as attn
 from . import mamba as mam
 from .layers import apply_mlp, apply_norm, rope_freqs
+from .moe import apply_moe
 from .params import init_params
 from .transformer import (
     check_supported,
@@ -62,16 +62,18 @@ class Model:
     def forward(self, params: dict, batch: dict, *,
                 collect_cache: bool = False):
         """Prefill forward over ``batch["tokens"]`` (B, S).  Returns
-        ``(logits (B, S, V), caches)``; ``caches`` (with
-        ``collect_cache``) holds per attention sublayer ``(k, v)``, each
-        (n_periods, B, S, Hkv, hd), else None."""
+        ``(logits (B, S, V), aux, caches)``: ``aux`` the MoE sublayers'
+        summed load-balancing loss (an f32 scalar, 0 without experts);
+        ``caches`` (with ``collect_cache``) per attention sublayer
+        ``(k, v)``, each (n_periods, B, S, Hkv, hd), else None."""
         tokens = batch["tokens"]
         b, s = tokens.shape
         x = self._embed(params, tokens)
         positions = torch.arange(s, device=x.device)[None].expand(b, s)
-        x, caches = forward_stack(self.cfg, params["blocks"], x, positions,
-                                  collect_cache=collect_cache)
-        return self._logits(params, x), caches
+        x, aux, caches = forward_stack(self.cfg, params["blocks"], x,
+                                       positions,
+                                       collect_cache=collect_cache)
+        return self._logits(params, x), aux, caches
 
     def init_decode_state(self, batch_size: int, max_seq: int, *,
                           device=None) -> dict:
@@ -129,7 +131,10 @@ class Model:
                     x = x + y[:, None].to(x.dtype)
                     mi += 1
                 h2 = apply_norm(cfg, p["norm2"], x)
-                x = x + apply_mlp(cfg, p["mlp"], h2)
+                if spec.ffn == "moe":
+                    x = x + apply_moe(cfg, p["moe"], h2)[0]
+                else:
+                    x = x + apply_mlp(cfg, p["mlp"], h2)
         logits = self._logits(params, x)[:, 0]
         new_state = dict(state)
         new_state["pos"] = pos + 1

@@ -8,8 +8,12 @@ reads the tree's lane-packed kernel views (``packed_matmul``), or gathers
 codes and scales straight out of the layer's packed stream
 (``stream_matmul``), routed as the reference routes them; with
 ``kv="packed"`` the KV cache is an Iris-planned packed stream too, read
-by ``stream_attention``.  The final ``logits = x @ embed.T`` is a plain
-product outside any kernel and stays ``torch.matmul``.
+by ``stream_attention``.  A ``use_bias`` config adds the reference's seven
+biases (``bq``/``bk``/``bv`` before RoPE, ``bo``, ``b_gate``/``b_up``
+before the activation, ``b_down``), dense leaves of ``pp.other``; norms
+take the layer's whole norm dict (a LayerNorm's bias too).  The final
+``logits = x @ embed.T`` is a plain product outside any kernel and stays
+``torch.matmul``.
 
 State is a dict of tensors: ``pos`` (B,) int32, plus ``k_cache`` /
 ``v_cache`` (dense KV) or ``packed_kv`` (a
@@ -134,13 +138,21 @@ def packed_decode_step(cfg, pp, state: dict, tokens: torch.Tensor, *,
         return _pmm(x2d.to(torch.float32), pp.packed[name][layer],
                     pp.scales[name][layer], pp.spec, plain=plain)
 
+    other = pp.other
+
+    def norm(name, layer):
+        return {k: v[layer] for k, v in other[name].items()}
+
     for layer in range(cfg.n_layers):
         words = stream_source(layer) if stream_source is not None else None
-        hnorm = apply_norm(cfg, {"scale": pp.other["norm1"]["scale"][layer]},
-                           x)
+        hnorm = apply_norm(cfg, norm("norm1", layer), x)
         q = mm("attn/wq", layer, hnorm).reshape(b, 1, h, hd)
         kk = mm("attn/wk", layer, hnorm).reshape(b, 1, hkv, hd)
         vv = mm("attn/wv", layer, hnorm).reshape(b, 1, hkv, hd)
+        if cfg.use_bias:
+            q = q + other["attn/bq"][layer].reshape(1, 1, h, hd)
+            kk = kk + other["attn/bk"][layer].reshape(1, 1, hkv, hd)
+            vv = vv + other["attn/bv"][layer].reshape(1, 1, hkv, hd)
         pos_b = pos[:, None]
         q = apply_rope(q, pos_b, inv_freq)
         kk = apply_rope(kk, pos_b, inv_freq)
@@ -156,19 +168,26 @@ def packed_decode_step(cfg, pp, state: dict, tokens: torch.Tensor, *,
             att = decode_attention(q.to(torch.bfloat16), kc[rows], vc[rows],
                                    pos)
         y = mm("attn/wo", layer, att.reshape(b, h * hd))
+        if cfg.use_bias:
+            y = y + other["attn/bo"][layer]
         x = x + y.to(x.dtype)
-        h2 = apply_norm(cfg, {"scale": pp.other["norm2"]["scale"][layer]}, x)
+        h2 = apply_norm(cfg, norm("norm2", layer), x)
         g = mm("mlp/w_gate", layer, h2)
         u = mm("mlp/w_up", layer, h2)
+        if cfg.use_bias:
+            g = g + other["mlp/b_gate"][layer]
+            u = u + other["mlp/b_up"][layer]
         hh = activation(cfg.act, g) * u
         y2 = mm("mlp/w_down", layer, hh)
+        if cfg.use_bias:
+            y2 = y2 + other["mlp/b_down"][layer]
         x = x + y2.to(x.dtype)
 
-    x = apply_norm(cfg, pp.other["final_norm"], x)
+    x = apply_norm(cfg, other["final_norm"], x)
     if cfg.tie_embeddings:
         logits = x @ embed.T
     else:
-        logits = x @ pp.other["unembed"]
+        logits = x @ other["unembed"]
     new_state = dict(state)
     if slot_ids is None:
         new_state["pos"] = pos + 1

@@ -1,19 +1,18 @@
-"""Layer stack for the dense and hybrid families.
+"""Layer stack for the dense, MoE and hybrid families.
 
 Port of ``src/repro/models/transformer.py``: :class:`SubLayerSpec`,
 :func:`period_template` (``:42-52``), :func:`n_periods`,
 :func:`init_stack` (``:88-100``), :func:`_sublayer_forward`
 (``:105-149``) and :func:`forward_stack` (``:152-195``).  A period is the
-smallest repeating sublayer template: one ``[attn -> mlp]`` sublayer for
-the dense family; ``attn_every`` sublayers for the hybrid (jamba), the
-last one attention and the rest Mamba.  Every parameter leaf is stacked
-over periods, as in the reference; where the reference scans over
-periods, this is a Python loop.  There is no remat (a training concern,
-ROADMAP A14).
+smallest repeating sublayer template: one ``[attn -> mlp|moe]`` sublayer
+for the dense and MoE families; ``attn_every`` sublayers for the hybrid
+(jamba), the last one attention and the rest Mamba, their FFNs MoE where
+``cfg.layer_is_moe``.  Every parameter leaf is stacked over periods, as
+in the reference; where the reference scans over periods, this is a
+Python loop.  There is no remat (a training concern, ROADMAP A14).
 
-Not yet ported, and refused with ``NotImplementedError``: MoE sublayers,
-the RWKV (``ssm``) family and the encoder-decoder / VLM families (ROADMAP
-A13).
+Not yet ported, and refused with ``NotImplementedError``: the RWKV
+(``ssm``), encoder-decoder and VLM families (ROADMAP A13c-e).
 """
 from __future__ import annotations
 
@@ -23,22 +22,19 @@ import torch
 
 from . import attention as attn
 from . import mamba as mam
+from . import moe as moe_mod
 from .layers import apply_mlp, apply_norm, init_mlp, init_norm, rope_freqs
 
 
 @dataclasses.dataclass(frozen=True)
 class SubLayerSpec:
     mixer: str                   # "attn" | "mamba"
-    ffn: str                     # "mlp"
+    ffn: str                     # "mlp" | "moe"
 
 
 def check_supported(cfg) -> None:
-    """Raise for the parts of A13 that later PRs port."""
-    if cfg.moe is not None:
-        raise NotImplementedError(
-            f"{cfg.name}: MoE sublayers are not ported yet (ROADMAP A13, "
-            f"moe.py); pass a config with moe=None")
-    if cfg.family not in ("dense", "hybrid"):
+    """Raise for the families of A13 that later PRs port."""
+    if cfg.family not in ("dense", "moe", "hybrid"):
         raise NotImplementedError(
             f"{cfg.name}: the {cfg.family!r} family is not ported yet "
             f"(ROADMAP A13)")
@@ -47,7 +43,7 @@ def check_supported(cfg) -> None:
 def period_template(cfg) -> tuple[SubLayerSpec, ...]:
     check_supported(cfg)
     return tuple(SubLayerSpec("attn" if cfg.layer_is_attn(s) else "mamba",
-                              "mlp")
+                              "moe" if cfg.layer_is_moe(s) else "mlp")
                  for s in range(max(1, cfg.attn_every)))
 
 
@@ -61,7 +57,7 @@ def n_periods(cfg) -> int:
 
 def init_stack(gen: torch.Generator, cfg, *, device=None) -> list[dict]:
     """Per-sublayer parameter trees, each leaf stacked over n_periods.
-    Draws the mixer's weights, then the MLP's, sublayer after sublayer."""
+    Draws the mixer's weights, then the FFN's, sublayer after sublayer."""
     lead = (n_periods(cfg),)
     out = []
     for spec in period_template(cfg):
@@ -72,7 +68,10 @@ def init_stack(gen: torch.Generator, cfg, *, device=None) -> list[dict]:
                                             device=device)
         else:
             p["mamba"] = mam.init_mamba(gen, cfg, lead=lead, device=device)
-        p["mlp"] = init_mlp(gen, cfg, lead=lead, device=device)
+        if spec.ffn == "moe":
+            p["moe"] = moe_mod.init_moe(gen, cfg, lead=lead, device=device)
+        else:
+            p["mlp"] = init_mlp(gen, cfg, lead=lead, device=device)
         out.append(p)
     return out
 
@@ -87,8 +86,9 @@ def period_params(tree, i: int):
 def _sublayer_forward(cfg, spec: SubLayerSpec, p: dict, x: torch.Tensor,
                       positions: torch.Tensor, inv_freq,
                       collect_cache: bool = False):
-    """Returns (x, cache_kv or None).  The Mamba final state is
-    discarded, as in the reference (``:125``)."""
+    """Returns (x, aux loss f32 scalar, cache_kv or None).  The Mamba
+    final state is discarded, as in the reference (``:125``)."""
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     cache = None
     h = apply_norm(cfg, p["norm1"], x)
     if spec.mixer == "attn":
@@ -105,31 +105,38 @@ def _sublayer_forward(cfg, spec: SubLayerSpec, p: dict, x: torch.Tensor,
         y, _ = mam.apply_mamba(cfg, p["mamba"], h)
         x = x + y
     h2 = apply_norm(cfg, p["norm2"], x)
-    x = x + apply_mlp(cfg, p["mlp"], h2)
-    return x, cache
+    if spec.ffn == "moe":
+        y, aux = moe_mod.apply_moe(cfg, p["moe"], h2)
+        x = x + y
+    else:
+        x = x + apply_mlp(cfg, p["mlp"], h2)
+    return x, aux, cache
 
 
 def forward_stack(cfg, blocks: list[dict], x: torch.Tensor,
                   positions: torch.Tensor, *, collect_cache: bool = False):
-    """Run the period stack.  Returns (x, caches or None): per attention
-    sublayer, (k, v) stacked over periods (n_periods, B, S, Hkv, hd)."""
+    """Run the period stack.  Returns (x, total aux loss, caches or
+    None): per attention sublayer, (k, v) stacked over periods
+    (n_periods, B, S, Hkv, hd)."""
     template = period_template(cfg)
     inv_freq = rope_freqs(cfg, x.device)
+    total = torch.zeros((), dtype=torch.float32, device=x.device)
     per_period = []
     for i in range(n_periods(cfg)):
         caches = []
         for si, spec in enumerate(template):
-            x, cache = _sublayer_forward(
+            x, aux, cache = _sublayer_forward(
                 cfg, spec, period_params(blocks[si], i), x, positions,
                 inv_freq,
                 collect_cache=collect_cache and spec.mixer == "attn")
+            total = total + aux
             if cache is not None:
                 caches.append(cache)
         per_period.append(caches)
     if not collect_cache:
-        return x, None
+        return x, total, None
     stacked = tuple(
         (torch.stack([pc[j][0] for pc in per_period]),
          torch.stack([pc[j][1] for pc in per_period]))
         for j in range(len(per_period[0])))
-    return x, stacked
+    return x, total, stacked

@@ -164,9 +164,11 @@ class PackedTree:
     lane-packed u32 kernel views (int32 bits) read by ``packed_matmul``,
     or empty for widths that do not lane-pack; ``streams``:
     ``(n_layers, c_max, m/8)`` uint8, the unified stream per layer (codes
-    + scale bit patterns + norm slots, interleaved by the scheduler);
-    ``scales``: per quantized key the ``(n_layers, K/g, N)`` bf16 group
-    scales; ``other``: embedding and norms.
+    + scale bit patterns + norm scale slots, interleaved by the
+    scheduler); ``scales``: per quantized key the ``(n_layers, K/g, N)``
+    bf16 group scales; ``other``: embedding, norms (LayerNorm biases
+    included) and, for a ``use_bias`` config, the dense biases under
+    ``"attn/bq"`` ... ``"mlp/b_down"``.
     """
 
     def __init__(self, packed: dict, scales: dict, other: dict,
@@ -384,9 +386,6 @@ def pack_tree(cfg, params: dict, spec: QuantSpec, *, m: int = 4096,
     if not quantizable(cfg):
         raise NotImplementedError(
             f"pack_tree covers dense-family archs; {cfg.name} is not")
-    if cfg.use_bias:
-        raise NotImplementedError("biased dense layers come with a later "
-                                  "slice of the port")
     if spec.scale_dtype not in ("bfloat16", "float16"):
         raise ValueError(
             f"stream packing stores 16-bit scale slots; scale_dtype "
@@ -409,7 +408,8 @@ def pack_tree(cfg, params: dict, spec: QuantSpec, *, m: int = 4096,
     for sub in ("attn", "mlp"):
         for name, w in blocks[sub].items():
             if name not in _QUANT_NAMES:
-                raise NotImplementedError(f"unexpected {sub}/{name}")
+                other[f"{sub}/{name}"] = w.to(device)   # biases stay dense
+                continue
             k = f"{sub}/{name}"
             qt = quantize(w.to(device), spec)
             if with_kernel_views:

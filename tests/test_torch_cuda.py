@@ -780,3 +780,139 @@ def test_uploader_on_the_card_uses_a_side_stream(cuda, int3_stack):
         torch.cuda.synchronize()
         kvc.pages.copy_(pages)           # the fixture's cache as it was
     assert torch.equal(got, want)
+
+
+def test_stream_attention_stablelm_heads(cuda):
+    """stablelm-3b's attention: 32 query heads over 32 KV heads (rep 1) of
+    head_dim 80, int3, B=4, smax 256, ragged positions."""
+    from repro_torch.configs import STABLELM_3B
+    from repro_torch.kvcache import PackedKVCache
+    from repro_torch.kvcache import stream_attention as _  # noqa: F401
+    import dataclasses
+    import sys
+
+    sa = sys.modules["repro_torch.kvcache.stream_attention"]
+    cfg = dataclasses.replace(STABLELM_3B, n_layers=1)
+    b, bits, smax = 4, 3, 256
+    h, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    assert (h, hkv, hd) == (32, 32, 80)
+    kvc = PackedKVCache.create(cfg, bits=bits, page_tokens=8, n_slots=b,
+                               max_seq=smax, device=cuda)
+    rng = np.random.default_rng(80)
+    for t in range(smax):
+        k = torch.from_numpy(rng.standard_normal((b, hkv, hd), np.float32))
+        v = torch.from_numpy(rng.standard_normal((b, hkv, hd), np.float32))
+        kvc.append(k.to(cuda), v.to(cuda), torch.full((b,), t),
+                   torch.arange(b), layer=0)
+    pos = torch.tensor([255, 191, 64, 0], device=cuda)
+    slots = torch.arange(b, device=cuda)
+    q = torch.from_numpy(rng.standard_normal((b, 1, h, hd), np.float32)) \
+        .to(cuda).to(torch.bfloat16)
+    tabs = kvc.device_stream_tables()
+    args = (kvc.layer_words(0), slots, q, pos, tabs["k"], tabs["k_scales"],
+            tabs["v"], tabs["v_scales"])
+    before = sa.launches
+    got = sa.stream_attention(*args, bits=bits)
+    want = sa.stream_attention_plain(*args, bits=bits)
+    torch.cuda.synchronize()
+    assert sa.launches == before + 1
+    assert (got.float() - want.float()).abs().max().item() <= ATT_ATOL
+
+
+def test_stablelm_layer_biased_packed_decode_kernels_match_plain(cuda):
+    """One stablelm-3b layer at full width (LayerNorm, biased projections,
+    seeded nonzero biases and norm biases), packed at int3 and int4: 4
+    ragged decode steps through the kernels against the same steps
+    through the plain versions over the pages the kernels wrote, within 4
+    bf16 ulps of the largest logit; int4 also packed == stream bit for
+    bit."""
+    import copy
+    import dataclasses
+
+    from repro_torch.configs import STABLELM_3B
+    from repro_torch.engine import PackedAdapter
+    from repro_torch.kernels import packed_matmul as pm
+    from repro_torch.kernels import stream_matmul as sm
+    from repro_torch.models.params import init_params
+    from repro_torch.models.quantized import packed_decode_step
+    from repro_torch.quant import QuantSpec
+    from repro_torch.tree import pack_tree
+
+    cfg = dataclasses.replace(STABLELM_3B, n_layers=1, vocab_size=4096)
+    params = init_params(cfg, torch.Generator(device=cuda).manual_seed(2),
+                         device=cuda)
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    blocks = params["blocks"][0]
+    for sub, names in (("attn", ("bq", "bk", "bv", "bo")),
+                       ("mlp", ("b_gate", "b_up", "b_down")),
+                       ("norm1", ("bias",)), ("norm2", ("bias",))):
+        for name in names:
+            t = blocks[sub][name]
+            blocks[sub][name] = (0.2 * torch.randn(
+                t.shape, generator=gen, device=cuda)).to(t.dtype)
+    rng = np.random.default_rng(4)
+    for bits in (3, 4):
+        tree = pack_tree(cfg, params, QuantSpec(bits=bits, group_size=32),
+                         device=cuda)
+        assert torch.equal(tree.other["attn/bq"], blocks["attn"]["bq"])
+        adapter = PackedAdapter(cfg, tree, kv="packed", kv_bits=bits)
+        state = adapter.init_state(4, 32)
+        for t in range(4):
+            slots = torch.arange(min(t + 1, 4), device=cuda)
+            tok = torch.from_numpy(rng.integers(1, cfg.vocab_size,
+                                                len(slots))).to(cuda)
+            pos = state["pos"]
+            before = (sm.launches, pm.launches)
+            got, state = packed_decode_step(cfg, tree, state, tok,
+                                            slot_ids=slots, kv="packed")
+            kernel = pm if bits == 4 else sm
+            assert kernel.launches == before[bits == 4] + 7
+            kvc = copy.copy(state["packed_kv"])
+            kvc.append = lambda *args, **kwargs: None
+            frozen = {"pos": pos, "packed_kv": kvc}
+            want, _ = packed_decode_step(cfg, tree, frozen, tok,
+                                         slot_ids=slots, kv="packed",
+                                         plain=True)
+            torch.cuda.synchronize()
+            largest = want.float().abs().max().item()
+            ulp = 2.0 ** (np.floor(np.log2(largest)) - 7)
+            assert torch.isfinite(got).all()
+            assert (got.float() - want.float()).abs().max().item() \
+                <= 4 * ulp
+            if bits == 4:
+                streamed, _ = packed_decode_step(
+                    cfg, tree, frozen, tok, slot_ids=slots, kv="packed",
+                    weights="stream")
+                assert torch.equal(got, streamed)
+
+
+def test_apply_moe_moonshot_widths_matches_oracle(cuda):
+    """One moonshot-v1-16b-a3b MoE layer at full width (64 experts top-6
+    of 2048 x 1408), bf16, at ample capacity: ``apply_moe`` within 4 bf16
+    ulps of the largest |y| of ``apply_moe_reference``; in f32 within
+    1e-4."""
+    import dataclasses
+
+    from repro_torch.configs import MOONSHOT_V1_16B_A3B
+    from repro_torch.models import moe
+
+    base = MOONSHOT_V1_16B_A3B
+    for dtype, tol in (("bfloat16", None), ("float32", 1e-4)):
+        cfg = dataclasses.replace(base, dtype=dtype, moe=dataclasses.replace(
+            base.moe, capacity_factor=base.moe.n_experts / base.moe.top_k))
+        p = moe.init_moe(torch.Generator(device=cuda).manual_seed(6), cfg,
+                         device=cuda)
+        x = torch.randn((2, 128, cfg.d_model), device=cuda,
+                        generator=torch.Generator(device=cuda).manual_seed(7)
+                        ).to(getattr(torch, dtype))
+        assert moe.moe_capacity(128, cfg) == 128
+        got, aux = moe.apply_moe(cfg, p, x)
+        want = moe.apply_moe_reference(cfg, p, x)
+        torch.cuda.synchronize()
+        assert got.dtype == x.dtype and torch.isfinite(aux)
+        err = (got.float() - want.float()).abs().max().item()
+        if tol is None:
+            largest = want.float().abs().max().item()
+            assert err <= 4 * 2.0 ** (np.floor(np.log2(largest)) - 7)
+        else:
+            assert err <= tol

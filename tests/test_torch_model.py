@@ -195,11 +195,16 @@ def test_params_from_jax_carries_hybrid_tree(runs):
 
 
 def test_unported_families_raise():
-    jamba = port_configs.JAMBA_1_5_LARGE.reduced()
-    with pytest.raises(NotImplementedError, match="A13"):
-        Model(jamba)
-    with pytest.raises(NotImplementedError, match="A13"):
-        init_params(jamba, device="cpu")
+    """The families of ROADMAP A13c-e still raise; MoE (A13b) does not:
+    ``tests/test_torch_moe.py`` runs it."""
+    base = port_configs.SMOLLM_135M.reduced()
+    for name, family in (("rwkv6-3b", "ssm"), ("whisper-medium", "encdec"),
+                         ("qwen2-vl-2b", "vlm")):
+        cfg = dataclasses.replace(base, name=name, family=family)
+        with pytest.raises(NotImplementedError, match="A13"):
+            Model(cfg)
+        with pytest.raises(NotImplementedError, match="A13"):
+            init_params(cfg, device="cpu")
     with pytest.raises(NotImplementedError, match="A13"):
         Model(dataclasses.replace(port_configs.SMOLLM_135M.reduced(),
                                   family="ssm"))
@@ -298,12 +303,15 @@ def test_forward_stack_matches_reference(runs):
     r = runs("jamba", "float32")
     x = _x((B, S, 128))
     pos = np.broadcast_to(np.arange(S)[None], (B, S))
-    rx, _, rc = ref_stack(r["rcfg"], r["params"]["blocks"], jnp.asarray(x),
-                          jnp.asarray(pos), collect_cache=True, remat="none")
-    px, pc = forward_stack(r["pcfg"], _pt(r["np_params"])["blocks"],
-                           torch.from_numpy(x), torch.from_numpy(pos.copy()),
-                           collect_cache=True)
+    rx, raux, rc = ref_stack(r["rcfg"], r["params"]["blocks"],
+                             jnp.asarray(x), jnp.asarray(pos),
+                             collect_cache=True, remat="none")
+    px, paux, pc = forward_stack(r["pcfg"], _pt(r["np_params"])["blocks"],
+                                 torch.from_numpy(x),
+                                 torch.from_numpy(pos.copy()),
+                                 collect_cache=True)
     np.testing.assert_allclose(px.numpy(), _np(rx), **F32_TOL)
+    assert float(paux) == float(raux) == 0.0        # moe=None: no experts
     assert len(pc) == len(rc) == 1
     for (pk, pv), (rk, rv) in zip(pc, rc):
         np.testing.assert_allclose(pk.numpy(), _np(rk), **F32_TOL)
@@ -387,7 +395,7 @@ def test_port_decode_matches_prefill_f32(runs, name):
     params = _pt(r["np_params"])
     model = Model(pcfg)
     toks = torch.from_numpy(r["toks"][:, :DECODE_STEPS])
-    par, _ = model.forward(params, {"tokens": toks})
+    par, _, _ = model.forward(params, {"tokens": toks})
     state = model.init_decode_state(B, MAX_SEQ, device="cpu")
     seq = []
     for i in range(DECODE_STEPS):
@@ -444,13 +452,15 @@ def test_reset_slot_zeroes_the_slot_ssm_rows(runs):
 
 
 def test_serve_cli_dense_jamba_completes(capsys):
+    """Reduced jamba serves unquantized with its MoE sublayers."""
     from repro_torch.launch import serve
 
     snap = serve.main(["--arch", "jamba-1.5-large-398b", "--reduced",
                        "--device", "cpu", "--requests", "3",
                        "--batch-size", "2", "--max-new", "3"])
     out = capsys.readouterr().out
-    assert "MoE sublayers are not ported yet" in out
+    assert "not ported" not in out
     assert "serving path: dense (hybrid, 16 layers" in out
+    assert "MoE 8 experts top-2" in out
     assert "completed=3/3" in out
     assert snap["throughput"]["tokens_per_s"] > 0
