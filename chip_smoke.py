@@ -114,16 +114,17 @@
 10. stablelm-3b at full width and depth (32 layers, d_model 2560, 32/32
     heads of 80, d_ff 6912, vocab 50304, LayerNorm, biased projections,
     untied; 2.80 B seeded parameters with seeded nonzero biases and norm
-    biases): ``pack_tree`` at int3 and at int4 on the card (32
-    ``pack_layout_fused`` launches each, counted; the bias and norm-bias
-    leaves carried dense); ``stream_matmul`` (int3) and ``packed_matmul``
-    (int4) on one layer's 7 matrices at M=4 and ``stream_attention`` at
-    B=4, 32/32 heads of 80, smax 256, each against its plain version and
-    beside its library call and bound; the 8-step ragged decode check of
-    each tree (int4 also packed == stream bit for bit); the int4 and int3
-    serves (batch 4, 8 requests of 16 new tokens, 224 matmul and 32
-    ``stream_attention`` launches a step, counted); a profiled window of
-    4 int3 steps.
+    biases), :func:`run_packed`: ``pack_tree`` at int3 and at int4 on the
+    card (32 ``pack_layout_fused`` launches each, counted; the bias and
+    norm-bias leaves carried dense) and layer 0's whole ``pack_pieces``
+    of each against ``pack_runs_plain``; ``stream_matmul`` (int3) and
+    ``packed_matmul`` (int4) on one layer's 7 matrices at M=4 and
+    ``stream_attention`` at B=4, 32/32 heads of 80, smax 256, each against
+    its plain version and beside its library call and bound; the 8-step
+    ragged decode check of each tree (int4 also packed == stream bit for
+    bit); the int4 and int3 serves (batch 4, 8 requests of 16 new tokens,
+    224 matmul and 32 ``stream_attention`` launches a step, counted); a
+    profiled window of 4 int3 steps.
 11. moonshot-v1-16b-a3b at full width (d_model 2048, 16/16 heads of 128,
     64 experts top-6 of d_expert 1408, vocab 163840), cut to 8 layers:
     the prefill at B=2, T=1024 (finite logits and aux; the share of
@@ -131,15 +132,43 @@
     ``apply_moe_reference`` in bf16 at ample capacity, decode == prefill
     in bf16 at ample capacity, and ``Engine(DenseAdapter)`` with 8
     requests of 8 new tokens against the bytes of every expert.
-12. Prints each phase's wall seconds, one JSON ``serve`` line (ms per
-    step of stablelm-3b's packed serves and moonshot's), one JSON
-    ``checkpoint`` line (the checkpoint phase's figures) and one JSON
-    ``kernels`` line (seven kernels, each with its ``device_ms``; the
-    matmuls and ``stream_attention`` also with ``library_device_ms`` and
-    a ``stablelm`` entry with that path's launches; ``stream_attention``
+12. qwen2-vl-2b at full width and depth (28 layers, d_model 1536, 12/2
+    heads of 128, rep 6, d_ff 8960, tied vocab 151936, RMSNorm, biased
+    projections, M-RoPE sections (16, 24, 24); 1.54 B seeded parameters,
+    biases seeded nonzero): everything of step 10 at its shapes (K and N
+    from 1536, 256 and 8960; 28 pack launches a width; 196 matmul and 28
+    ``stream_attention`` launches a serve step).
+13. rwkv6-3b at full width and depth (32 layers, d_model 2560, 40
+    time-mix heads of 64, d_ff 8960, vocab 65536; 2.86 B seeded
+    parameters, ``bonus_u``, ``mix`` and ``decay_w0`` seeded away from
+    their constant inits): the prefill at B=2, T=1024; decode == prefill
+    in bf16 (1.5: ``RWKV_BF16_ATOL``) and, the same weights widened, in
+    f32 (1e-3, greedy
+    argmax equal at every position); ``Engine(DenseAdapter)`` with 8
+    requests of 8 new tokens against its bytes bound.  No kernel of the
+    port is on this path: the time mix's decay is per channel, and the
+    reference runs it through its plain scan too.
+14. whisper-medium at full width and depth (24 encoder and 24 decoder
+    layers, d_model 1024, 16 heads of 64, d_ff 4096, vocab 51865,
+    LayerNorm, biases; 1.01 B seeded parameters, biases seeded nonzero):
+    ``encode`` of B=2 seeded frame embeddings (1500 x 1024, the audio
+    front end's stub); the prefill over tokens and frames at T=448, the
+    decoder's context; decode over ``precompute_cross_kv`` == prefill in
+    bf16 and f32 as in step 13; ``Engine(DenseAdapter)`` (without cross
+    K/V, as the reference's adapter steps it) with 8 requests of 8 new
+    tokens.  No kernel of the port is on this path.
+15. Prints each phase's wall seconds, one JSON ``serve`` line (ms per
+    step of the packed serves of stablelm-3b and qwen2-vl-2b, and of the
+    unquantized serves of moonshot, rwkv6-3b and whisper-medium), one
+    JSON ``checkpoint`` line (the checkpoint phase's figures) and one
+    JSON ``kernels`` line (seven kernels, each with its ``device_ms``;
+    the matmuls and ``stream_attention`` also with
+    ``library_device_ms``; B1-B4 with a ``stablelm`` and a ``qwen2_vl``
+    entry holding that path's row and launches; ``stream_attention``
     with its smax-2048 and rep-12 points, ``ssd_scan`` with its dk=128
-    point; ``pack_layout_fused``'s launches include stablelm's 64), the
-    card line again, and last ``{"ok": true, "device": {...}}``.
+    point; ``pack_layout_fused``'s launches include stablelm's 64 and
+    qwen2-vl's 56), the card line again, and last ``{"ok": true,
+    "device": {...}}``.
 
 Any failed check raises, and the script exits non-zero without the last
 line.  Without a CUDA device it exits 2; run alone, outside the
@@ -198,8 +227,22 @@ SCAN_BF16_TOL = dict(rtol=2.0 ** -7, atol=1e-3)
 #: (the same weights widened): the reference's own bound, 1e-3.
 DECODE_BF16_ATOL = 0.5
 DECODE_F32_TOL = dict(rtol=1e-3, atol=1e-3)
-#: jamba prefill shape (the ssd_scan kernel line is timed here)
+#: rwkv6-3b decode vs prefill logits in bf16, 32 layers.  Each of the
+#: two bf16 paths drifts from the f32 logits of the same weights by
+#: ~0.04 a layer (``tools/rwkv_bf16_drift.py`` on an H100: 0.045-0.048
+#: at 1 layer, 0.33-0.34 at 8, 0.67-0.70 at 16, 1.40-1.43 at 32), and the
+#: two differ by 0.22, 0.51 and 1.09 at 8, 16 and 32 layers; the
+#: reference's own two bf16 paths differ as the port's do
+#: (``--reference``: 0.30 against 0.27 at 8 reduced layers).  So 1.5,
+#: where jamba's 8 sublayers take 0.5; the f32 check (1e-3, greedy argmax
+#: at every position) is the gate on the algorithm.
+RWKV_BF16_ATOL = 1.5
+#: jamba prefill shape (the ssd_scan kernel line is timed here); also
+#: moonshot's and rwkv6-3b's
 PREFILL_B, PREFILL_T = 2, 1024
+#: whisper-medium's decoder context (``max_target_positions`` of
+#: ``openai/whisper-medium``): its prefill's T
+WHISPER_T = 448
 
 
 def card_line() -> str:
@@ -1950,23 +1993,32 @@ def prefill_jamba(cfg, params, toks) -> int:
     return launches
 
 
-def decode_vs_prefill(cfg, params, toks, tol: dict, what: str) -> None:
+def decode_vs_prefill(cfg, params, toks, tol: dict, what: str,
+                      frames=None) -> None:
     """Teacher-forced decode (``build_serve_step``: ``recurrent_step``,
-    decode attention) against the prefill's logits (``ssd_scan``, flash
-    attention) over the same tokens.  Every logit within ``tol``; in f32
-    also the greedy argmax at every position."""
+    decode attention) against the prefill's logits (``ssd_scan`` or the
+    RWKV scan, flash attention) over the same tokens.  An encoder-decoder
+    prefills over ``frames`` and decodes over their cross K/V
+    (``precompute_cross_kv`` of ``encode``).  Every logit within ``tol``;
+    in f32 also the greedy argmax at every position."""
     import torch
 
     from repro_torch.launch.steps import build_prefill_step, build_serve_step
     from repro_torch.models.model import Model
 
     b, t = toks.shape
-    par, _ = build_prefill_step(cfg)(params, {"tokens": toks})
+    batch, cross_kv = {"tokens": toks}, None
+    if frames is not None:
+        batch["frames"] = frames
+        model = Model(cfg)
+        cross_kv = model.precompute_cross_kv(params,
+                                             model.encode(params, frames))
+    par, _ = build_prefill_step(cfg)(params, batch)
     step = build_serve_step(cfg)
     state = Model(cfg).init_decode_state(b, 256, device=toks.device)
     seq = []
     for i in range(t):
-        lg, state = step(params, state, toks[:, i])
+        lg, state = step(params, state, toks[:, i], cross_kv)
         seq.append(lg)
     seq = torch.stack(seq, dim=1).float()
     par = par.float()
@@ -1991,10 +2043,13 @@ def serve_dense(cfg, params, rng, label: str = "jamba") -> dict:
     """The unquantized serving path: Engine(DenseAdapter), 8 requests,
     batch 4, max_seq 256, prompts of 2-5 tokens, 8 new tokens each; ms per
     step against the decode step's bytes bound.  A step reads every
-    weight (for a MoE model every expert: the per-row capacity dispatch
-    fills a slot of each) but the embedding table (4 of its rows), and
-    reads and writes the SSM state where there is one; the KV cache is
-    left out, so this is a lower bound."""
+    weight of the decoder's blocks (for a MoE model every expert: the
+    per-row capacity dispatch fills a slot of each; an encoder-decoder's
+    cross-attention is skipped without cross K/V, as in the reference,
+    and its encoder does not run), the final norm, the unembedding and 4
+    rows of an untied embedding, and reads and writes the recurrent state
+    (Mamba's, RWKV's) where there is one; the KV cache is left out, so
+    this is a lower bound."""
     import torch
 
     from repro_torch.engine import (
@@ -2021,13 +2076,24 @@ def serve_dense(cfg, params, rng, label: str = "jamba") -> dict:
     stats = engine.run_until_drained(max_steps=500)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    w_bytes = sum(x.numel() * x.element_size()
-                  for _, _, x in param_leaves(params)) \
-        - params["embed"].numel() * params["embed"].element_size() \
-        + 4 * cfg.d_model * params["embed"].element_size()
+    def nbytes(tree) -> int:
+        return sum(x.numel() * x.element_size()
+                   for _, _, x in param_leaves(tree))
+
+    emb = params["embed"]
+    blocks = [{k: v for k, v in sub.items()
+               if k not in ("cross", "norm_cross")}
+              for sub in params["blocks"]]
+    w_bytes = nbytes(blocks) + nbytes(params["final_norm"]) + (
+        nbytes([emb]) if cfg.tie_embeddings
+        else nbytes([params["unembed"]]) + 4 * cfg.d_model
+        * emb.element_size())
     ssm = engine.state.get("ssm")
-    step_bytes = w_bytes + (0 if ssm is None
-                            else 2 * ssm.numel() * ssm.element_size())
+    state_bytes = sum(engine.state[k].numel() * engine.state[k]
+                      .element_size() for k in ("ssm", "rwkv", "shift_t",
+                                                "shift_c")
+                      if k in engine.state)
+    step_bytes = w_bytes + 2 * state_bytes
     bms = step_bytes / HBM_BYTES_PER_S * 1e3
     per_step = wall / max(1, stats.steps) * 1e3
     print(f"serve {label} (dense): completed={stats.completed}/"
@@ -2096,11 +2162,7 @@ def run_jamba(cfg, cuts: str, dev) -> tuple[dict, int]:
                          EngineConfig(batch_size=4, max_seq=256,
                                       max_backlog=None)),
                   prompts, "jamba dense bf16")
-    # the same weights widened to f32 (exact), leaf by leaf in place
-    torch.cuda.empty_cache()
-    for node, key, val in param_leaves(params):
-        node[key] = val.float()
-    del val
+    widen_f32(params)
     decode_vs_prefill(dataclasses.replace(cfg, dtype="float32"), params,
                       short, DECODE_F32_TOL, "f32, the same weights")
     return row, launches
@@ -2134,21 +2196,89 @@ def seed_biases(params, dev) -> int:
     return n
 
 
-def run_stablelm(cfg, dev) -> tuple[dict, dict]:
-    """stablelm-3b at full width and depth, LayerNorm and biased, served
-    from Iris streams: seeded weights with seeded biases; ``pack_tree`` at
-    int3 and int4 on the card (one ``pack_layout_fused`` launch a layer,
-    counted); the matmul and attention kernels at its shapes beside their
-    library calls; the 8-step ragged decode check of each tree; both
-    packed serves (counted); a profiled window of the int3 serve.  Returns
-    the kernel rows of its path and their launches."""
+def check_pack_layer(packs, dev) -> dict:
+    """Layer 0's whole ``pack_pieces`` call of each tree at a wide
+    config's shapes (one ``pack_runs`` launch), from the pieces as
+    ``pack_tree`` handed them over, against ``pack_runs_plain`` and the
+    layer's stream; timed back to back and on the device (the call's
+    profiler window must hold one kernel).  The bound is
+    :func:`check_pack_kernel`'s: the arrays as stored and the stream out,
+    the run table once per stack.  ``packs``: ``(tree, pieces)`` pairs.
+    Returns the int4 tree's row with the int3 row under ``"int3"``."""
+    import torch
+
+    from repro_torch.kernels import layout_pack as lp
+    from repro_torch.kernels.ref import pack_runs_plain
+
+    rows = {}
+    for tree, streams in packs:
+        prog = tree.exec_program()
+        bits = tree.spec.bits
+        table = lp.device_pack_runs(prog, dev)
+
+        def call():
+            return lp.pack_pieces(prog, streams)
+
+        before = lp.launches
+        got = call()
+        plain = pack_runs_plain(table.runs, streams, prog.c_max,
+                                prog.words32)
+        torch.cuda.synchronize()
+        if lp.launches != before + 1:
+            raise AssertionError(f"pack_pieces: {lp.launches - before} "
+                                 "launches a call, expected 1")
+        if not torch.equal(got, tree.streams[0]) or not torch.equal(
+                lp.pack_runs(table, streams), plain):
+            raise AssertionError(f"pack_layout_fused int{bits} "
+                                 f"{tree.manifest.arch}: "
+                                 "pack_pieces differs from pack_runs_plain "
+                                 "or the layer's stream")
+        del plain
+        ms = time_ms(call, iters=10)
+        dms = one_kernel_ms(call, "pack_runs_kernel",
+                            f"pack_layout_fused int{bits}", iters=10)
+        pms = time_ms(lambda: pack_runs_plain(
+            table.runs, streams, prog.c_max, prog.words32), iters=1,
+            warmup=1)
+        in_bytes = sum(s.numel() * s.element_size() for s in streams)
+        out_bytes = prog.c_max * prog.words32 * 4
+        tab_bytes = (table.runs.numel() + table.row_start.numel()) * 4
+        bms, by = bound_ms(in_bytes + out_bytes + tab_bytes / tree.n_layers,
+                           0)
+        cold, _ = bound_ms(in_bytes + out_bytes + tab_bytes, 0)
+        print(f"pack_layout_fused int{bits} {tree.manifest.arch} layer "
+              f"(whole pack_pieces call): {prog.n_pieces} pieces of "
+              f"{len(streams)} "
+              f"arrays, {table.runs.shape[0]} runs: {ms:.4f} ms (device "
+              f"{fmt_ms(dms)} ms, 1 kernel a call)  plain {pms:.4f} ms  "
+              f"library none  bound {bms:.6f} ms ({by}; {in_bytes} B of "
+              f"arrays as stored + {out_bytes} B out, with the {tab_bytes} B "
+              f"run table over {tree.n_layers} layers); cold-L2 bound "
+              f"{cold:.6f} ms  max|err| 0")
+        rows[bits] = {"max_abs_err": 0.0, "ms": ms, "device_ms": dms,
+                      "plain_ms": pms, "bound_ms": bms, "bound_by": by,
+                      "cold_bound_ms": cold, "library_ms": None}
+    return {**rows[4], "int3": rows[3]}
+
+
+def run_packed(cfg, dev, seed: int) -> tuple[dict, dict]:
+    """A config of one ``attn -> mlp`` sublayer at full width and depth
+    (stablelm-3b: LayerNorm and biased; qwen2-vl-2b: RMSNorm, biased,
+    tied, GQA rep 6, M-RoPE) served from Iris streams: seeded weights
+    with seeded biases; ``pack_tree`` at int3 and int4 on the card (one
+    ``pack_layout_fused`` launch a layer, counted) and layer 0's pack
+    against its plain version; the matmul and attention kernels at its
+    shapes beside their library calls; the 8-step ragged decode check of
+    each tree; both packed serves (counted); a profiled window of the
+    int3 serve.  Returns the kernel rows of its path and their
+    launches."""
     import torch
 
     from repro_torch.engine import Engine, EngineConfig, PackedAdapter
     from repro_torch.models.params import init_params
     from repro_torch.quant import QuantSpec
 
-    rng = np.random.default_rng(3)
+    rng = np.random.default_rng(seed)
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     params = init_params(cfg, torch.Generator(device=dev).manual_seed(0),
@@ -2158,10 +2288,12 @@ def run_stablelm(cfg, dev) -> tuple[dict, dict]:
     n_params = sum(x.numel() for _, _, x in param_leaves(params))
     n_bytes = sum(x.numel() * x.element_size()
                   for _, _, x in param_leaves(params))
-    print(f"stablelm weights: {cfg.name} ({cfg.n_layers} layers, d_model "
+    print(f"{cfg.name} weights: {cfg.n_layers} layers, d_model "
           f"{cfg.d_model}, {cfg.n_heads}/{cfg.n_kv_heads} heads of "
           f"{cfg.head_dim}, d_ff {cfg.d_ff}, vocab {cfg.vocab_size}, "
-          f"{cfg.norm}, use_bias={cfg.use_bias}, untied): "
+          f"{cfg.norm}, use_bias={cfg.use_bias}, "
+          f"{'tied' if cfg.tie_embeddings else 'untied'}, rope_theta "
+          f"{cfg.rope_theta:g}, mrope_sections {cfg.mrope_sections}: "
           f"{n_params / 1e9:.4f} B parameters (param_count "
           f"{cfg.param_count() / 1e9:.4f} B), {n_bytes / 1e9:.3f} GB, "
           f"{n_bias} of them seeded biases (std {BIAS_STD}), in "
@@ -2169,22 +2301,24 @@ def run_stablelm(cfg, dev) -> tuple[dict, dict]:
           f"{mem_gb():.2f} GB")
     if n_params != cfg.param_count():
         raise AssertionError("parameter tree != param_count()")
-    trees, packs = {}, 0
+    norms = ("norm1", "norm2") if cfg.norm == "layernorm" else ()
+    trees, pieces, packs = {}, {}, 0
     for bits in (3, 4):
         t0 = time.perf_counter()
-        tree, launches, _ = counted_pack_tree(
+        tree, launches, pieces[bits] = counted_pack_tree(
             cfg, params, QuantSpec(bits=bits, group_size=32), dev)
         biases = sorted(k for k in tree.other if "/" in k)
         same = all(torch.equal(tree.other[k], params["blocks"][0][
             k.split("/")[0]][k.split("/")[1]]) for k in biases) and all(
             torch.equal(tree.other[n]["bias"], params["blocks"][0][n]["bias"])
-            for n in ("norm1", "norm2"))
+            for n in norms)
         print(f"pack {cfg.name} int{bits}: {tree.summary()}; C_max "
               f"{tree.manifest.c_max}; pack_tree "
               f"{time.perf_counter() - t0:.2f} s wall with the host's "
               f"planning and lowering ({launches} pack_layout_fused "
-              f"launches); dense leaves {biases} and the norm biases equal "
-              f"to the weights': {same}")
+              f"launches); dense leaves {biases}"
+              f"{' and the norm biases' if norms else ''} equal to the "
+              f"weights': {same}")
         if launches != cfg.n_layers or not same or len(biases) != 7:
             raise AssertionError(f"pack {cfg.name} int{bits}: {launches} "
                                  f"launches, biases {biases}, equal {same}")
@@ -2195,7 +2329,10 @@ def run_stablelm(cfg, dev) -> tuple[dict, dict]:
     tree3.stream_words()
     rows = {"stream_matmul": check_stream_matmul(tree3, rng, dev),
             "packed_matmul": check_packed_matmul(tree4, rng, dev),
-            "stream_attention": check_stream_attention(cfg, rng, dev)}
+            "stream_attention": check_stream_attention(cfg, rng, dev),
+            "pack_layout_fused": check_pack_layer(
+                ((tree3, pieces[3]), (tree4, pieces[4])), dev)}
+    del pieces
     prompts = [rng.integers(1, cfg.vocab_size,
                             int(rng.integers(2, 6))).tolist()
                for _ in range(8)]
@@ -2361,6 +2498,190 @@ def run_moonshot(cfg, cuts: str, dev) -> dict:
     return serve_dense(cfg, params, rng, label=cfg.name)
 
 
+def seed_rwkv(params, dev) -> int:
+    """RWKV's constant-init leaves drawn anew from a seeded generator on
+    ``dev``, in their f32: ``bonus_u`` N(0, 0.5), ``mix`` U(0, 1),
+    ``decay_w0`` -2 + N(0, 0.5) (their inits 0, 0.5 and -2 would hide a
+    dropped or misplaced term).  Returns their count."""
+    import torch
+
+    gen = torch.Generator(device=dev).manual_seed(23)
+    draw = {"bonus_u": lambda sh: 0.5 * torch.randn(sh, generator=gen,
+                                                    device=dev),
+            "mix": lambda sh: torch.rand(sh, generator=gen, device=dev),
+            "decay_w0": lambda sh: -2.0 + 0.5 * torch.randn(
+                sh, generator=gen, device=dev)}
+    n = 0
+    for node, key, val in param_leaves(params):
+        if key in draw:
+            node[key] = draw[key](val.shape).to(val.dtype)
+            n += val.numel()
+    return n
+
+
+def widen_f32(params) -> None:
+    """The same weights widened to f32 (exact), leaf by leaf in place."""
+    import torch
+
+    torch.cuda.empty_cache()
+    for node, key, val in param_leaves(params):
+        node[key] = val.float()
+
+
+def run_rwkv(cfg, dev) -> dict:
+    """rwkv6-3b at full width and depth: seeded weights with RWKV's
+    constant leaves seeded; the prefill at B=2, T=1024 (its time mix over
+    the plain ``recurrent_scan``: no kernel of the port runs on this
+    path, as none of the reference's does); decode == prefill in bf16 and,
+    the same weights widened, in f32 with the greedy argmax gated; the
+    unquantized serve against its bytes bound."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.launch.steps import build_prefill_step
+    from repro_torch.models.params import init_params
+
+    rng = np.random.default_rng(7)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(0),
+                         device=dev)
+    n_seeded = seed_rwkv(params, dev)
+    torch.cuda.synchronize()
+    n_params = sum(x.numel() for _, _, x in param_leaves(params))
+    n_bytes = sum(x.numel() * x.element_size()
+                  for _, _, x in param_leaves(params))
+    print(f"rwkv weights: {cfg.name} ({cfg.n_layers} layers, d_model "
+          f"{cfg.d_model}, {cfg.d_model // cfg.rwkv.head_dim} time-mix heads "
+          f"of {cfg.rwkv.head_dim}, decay LoRA {cfg.rwkv.decay_lora}, d_ff "
+          f"{cfg.d_ff}, vocab {cfg.vocab_size}): {n_params / 1e9:.4f} B "
+          f"parameters (param_count {cfg.param_count() / 1e9:.4f} B), "
+          f"{n_bytes / 1e9:.3f} GB, {n_seeded} of them bonus_u, mix and "
+          f"decay_w0 seeded away from their constant inits, in "
+          f"{time.perf_counter() - t0:.2f} s; peak device memory "
+          f"{mem_gb():.2f} GB")
+    if n_params != cfg.param_count():
+        raise AssertionError("parameter tree != param_count()")
+    toks = torch.from_numpy(rng.integers(
+        1, cfg.vocab_size, (PREFILL_B, PREFILL_T))).to(dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits, caches = build_prefill_step(cfg)(params, {"tokens": toks})
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    finite = bool(torch.isfinite(logits).all())
+    print(f"prefill {cfg.name} B={PREFILL_B} T={PREFILL_T} "
+          f"(build_prefill_step): logits {tuple(logits.shape)} "
+          f"{logits.dtype} finite={finite}; caches {caches} (attention-"
+          f"free); {wall * 1e3:.1f} ms wall (first call); peak device "
+          f"memory {mem_gb():.2f} GB")
+    if logits.shape != (PREFILL_B, PREFILL_T, cfg.vocab_size) or \
+            not finite or caches != ():
+        raise AssertionError(f"prefill {cfg.name}: finite {finite}")
+    del logits
+    short = torch.from_numpy(rng.integers(1, cfg.vocab_size, (2, 16))).to(dev)
+    decode_vs_prefill(cfg, params, short,
+                      dict(rtol=0.0, atol=RWKV_BF16_ATOL), "bf16")
+    out = serve_dense(cfg, params, rng, label=cfg.name)
+    widen_f32(params)
+    decode_vs_prefill(dataclasses.replace(cfg, dtype="float32"), params,
+                      short, DECODE_F32_TOL, "f32, the same weights")
+    return {**out, "prefill_ms": wall * 1e3}
+
+
+def run_whisper(cfg, dev) -> dict:
+    """whisper-medium at full width and depth (24 encoder and 24 decoder
+    layers): seeded weights with seeded biases and norm biases;
+    ``encode`` of B=2 seeded frame embeddings (the audio front end's stub,
+    1500 x 1024); the prefill over tokens and frames at T=448, whisper's
+    decoder context; decode over ``precompute_cross_kv`` == prefill in
+    bf16 and, the same weights widened, in f32 with the greedy argmax
+    gated; the unquantized serve (``DenseAdapter`` steps without cross
+    K/V, as the reference's does) against its bytes bound.  No kernel of
+    the port runs on this path (the reference's attention is its plain
+    ``flash_attention``)."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.launch.steps import build_prefill_step
+    from repro_torch.models.model import Model
+    from repro_torch.models.params import init_params
+
+    rng = np.random.default_rng(9)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(0),
+                         device=dev)
+    n_bias = seed_biases(params, dev)
+    torch.cuda.synchronize()
+    n_params = sum(x.numel() for _, _, x in param_leaves(params))
+    n_bytes = sum(x.numel() * x.element_size()
+                  for _, _, x in param_leaves(params))
+    print(f"whisper weights: {cfg.name} ({cfg.encoder.n_layers} encoder + "
+          f"{cfg.n_layers} decoder layers, d_model {cfg.d_model}, "
+          f"{cfg.n_heads}/{cfg.n_kv_heads} heads of {cfg.head_dim}, d_ff "
+          f"{cfg.d_ff}, vocab {cfg.vocab_size}, {cfg.norm}, use_bias="
+          f"{cfg.use_bias}, {cfg.encoder.n_ctx} frames): "
+          f"{n_params / 1e9:.4f} B parameters (param_count "
+          f"{cfg.param_count() / 1e9:.4f} B), {n_bytes / 1e9:.3f} GB, "
+          f"{n_bias} of them seeded biases (std {BIAS_STD}), in "
+          f"{time.perf_counter() - t0:.2f} s; peak device memory "
+          f"{mem_gb():.2f} GB")
+    if n_params != cfg.param_count():
+        raise AssertionError("parameter tree != param_count()")
+    gen = torch.Generator(device=dev).manual_seed(24)
+    frames = torch.randn((PREFILL_B, cfg.encoder.n_ctx, cfg.d_model),
+                         generator=gen, device=dev)
+    model = Model(cfg)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    memory = model.encode(params, frames)
+    torch.cuda.synchronize()
+    enc_ms = (time.perf_counter() - t0) * 1e3
+    finite = bool(torch.isfinite(memory).all())
+    print(f"encode {cfg.name} B={PREFILL_B}: frames {tuple(frames.shape)} "
+          f"-> memory {tuple(memory.shape)} {memory.dtype} finite={finite}; "
+          f"{enc_ms:.1f} ms wall (first call)")
+    if memory.shape != (PREFILL_B, cfg.encoder.n_ctx, cfg.d_model) or \
+            not finite:
+        raise AssertionError(f"encode {cfg.name}: finite {finite}")
+    del memory
+    toks = torch.from_numpy(rng.integers(
+        1, cfg.vocab_size, (PREFILL_B, WHISPER_T))).to(dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits, caches = build_prefill_step(cfg)(
+        params, {"tokens": toks, "frames": frames})
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    finite = bool(torch.isfinite(logits).all())
+    shapes = [tuple(k.shape) for k, _ in caches]
+    print(f"prefill {cfg.name} B={PREFILL_B} T={WHISPER_T} with frames "
+          f"(build_prefill_step: encode, then the decoder with its "
+          f"cross-attention): logits {tuple(logits.shape)} {logits.dtype} "
+          f"finite={finite}; caches {shapes}; {wall * 1e3:.1f} ms wall "
+          f"(first call); peak device memory {mem_gb():.2f} GB")
+    want = (cfg.n_layers, PREFILL_B, WHISPER_T, cfg.n_kv_heads, cfg.head_dim)
+    if logits.shape != (PREFILL_B, WHISPER_T, cfg.vocab_size) or \
+            not finite or shapes != [want]:
+        raise AssertionError(f"prefill {cfg.name}: finite {finite}, caches "
+                             f"{shapes}")
+    del logits, caches
+    short = torch.from_numpy(rng.integers(1, cfg.vocab_size, (2, 16))).to(dev)
+    decode_vs_prefill(cfg, params, short,
+                      dict(rtol=0.0, atol=DECODE_BF16_ATOL),
+                      "bf16, over the frames' cross K/V", frames=frames)
+    out = serve_dense(cfg, params, rng, label=cfg.name)
+    widen_f32(params)
+    decode_vs_prefill(dataclasses.replace(cfg, dtype="float32"), params,
+                      short, DECODE_F32_TOL,
+                      "f32, the same weights, over the frames' cross K/V",
+                      frames=frames)
+    return {**out, "encode_ms": enc_ms, "prefill_ms": wall * 1e3}
+
+
 def main() -> int:
     import torch
 
@@ -2369,7 +2690,13 @@ def main() -> int:
         return 2
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    from repro_torch.configs import SMOLLM_135M, STABLELM_3B
+    from repro_torch.configs import (
+        QWEN2_VL_2B,
+        RWKV6_3B,
+        SMOLLM_135M,
+        STABLELM_3B,
+        WHISPER_MEDIUM,
+    )
     from repro_torch.kernels import build
 
     card = card_line()
@@ -2400,26 +2727,36 @@ def main() -> int:
                     "replaces": "src/repro/kernels/linear_scan.py:92",
                     "launches": launches, **row})
     torch.cuda.empty_cache()       # jamba's weights are gone with run_jamba()
-    t0 = time.perf_counter()
-    rows, paths = run_stablelm(STABLELM_3B, dev)
-    phases["stablelm-3b"] = time.perf_counter() - t0
-    torch.cuda.empty_cache()
     by_name = {k["name"]: k for k in kernels}
-    for name, row in rows.items():
-        by_name[name]["stablelm"] = {**row, "launches": paths[name]}
-    by_name["pack_layout_fused"]["launches"] += paths["pack_layout_fused"]
-    by_name["pack_layout_fused"]["stablelm"] = {
-        "launches": paths["pack_layout_fused"]}
+    served = {}
+
+    def packed_phase(pcfg, key: str, seed: int) -> None:
+        t0 = time.perf_counter()
+        rows, paths = run_packed(pcfg, dev, seed)
+        phases[pcfg.name] = time.perf_counter() - t0
+        torch.cuda.empty_cache()
+        for name, row in rows.items():
+            by_name[name][key] = {**row, "launches": paths[name]}
+        by_name["pack_layout_fused"]["launches"] += \
+            paths["pack_layout_fused"]
+        served[pcfg.name.replace("-", "_").replace(".", "_")] = \
+            paths["ms_per_step"]
+
+    packed_phase(STABLELM_3B, "stablelm", 3)
     t0 = time.perf_counter()
     cfg, cuts = moonshot_config()
-    moon = run_moonshot(cfg, cuts, dev)
+    served["moonshot_v1_16b_a3b"] = run_moonshot(cfg, cuts, dev)
     phases["moonshot-v1-16b-a3b"] = time.perf_counter() - t0
     torch.cuda.empty_cache()
+    packed_phase(QWEN2_VL_2B, "qwen2_vl", 11)
+    for fcfg, fn in ((RWKV6_3B, run_rwkv), (WHISPER_MEDIUM, run_whisper)):
+        t0 = time.perf_counter()
+        served[fcfg.name.replace("-", "_")] = fn(fcfg, dev)
+        phases[fcfg.name] = time.perf_counter() - t0
+        torch.cuda.empty_cache()
     print("phases (wall s): " + ", ".join(f"{k} {v:.1f}"
                                           for k, v in phases.items()))
-    print(json.dumps({"serve": {
-        "stablelm_3b": paths["ms_per_step"],
-        "moonshot_v1_16b_a3b": moon}}))
+    print(json.dumps({"serve": served}))
     print(json.dumps({"checkpoint": ckpt}))
     print(json.dumps({"kernels": kernels}))
     print(f"card: {card}")

@@ -1,10 +1,11 @@
 """repro_torch: the PyTorch / NVIDIA H100 port of the Iris reproduction.
 
 A package of its own beside ``repro`` (the JAX/TPU reference, which it
-never imports).  This slice serves dense decoders (smollm-135m) from
-int-N Iris weight streams with a packed Iris KV cache, through two
-hand-written CUDA kernels (``csrc/stream_matmul.cu``,
-``csrc/stream_attention.cu``) built with ``nvcc`` at first use.  Entry
+never imports).  It serves decoders of one ``attn -> mlp`` sublayer
+(the dense configs and qwen2-vl-2b) from int-N Iris weight streams with
+a packed Iris KV cache, and every config of the reference unquantized,
+through hand-written CUDA kernels (``csrc/*.cu``) built with ``nvcc`` at
+first use.  Entry
 points run on ``"cuda"`` unless given ``device="cpu"``, where the
 kernels' plain PyTorch versions run instead.
 """

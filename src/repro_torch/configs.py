@@ -4,12 +4,12 @@ Own copy of ``src/repro/configs/base.py`` (:class:`MoEConfig`,
 :class:`SSMConfig`, :class:`ModelConfig` with its layer-interleave
 helpers and :meth:`ModelConfig.reduced`, :class:`ShapeConfig` and
 :data:`SHAPES`), of :func:`shape_cells`
-(``src/repro/configs/__init__.py:35-42``) and of seven of the
-reference's config modules: ``smollm_135m``, ``mistral_large_123b``,
+(``src/repro/configs/__init__.py:35-42``) and of the reference's ten
+config modules: ``smollm_135m``, ``mistral_large_123b``,
 ``command_r_plus_104b``, ``stablelm_3b``, ``moonshot_v1_16b_a3b``,
-``arctic_480b`` and ``jamba_1_5_large_398b``, each field equal to the
-reference's.  The RWKV, encoder and M-RoPE fields come with the families
-that read them (ROADMAP A13c-e), as do their configs.
+``arctic_480b``, ``jamba_1_5_large_398b``, ``rwkv6_3b``,
+``whisper_medium`` and ``qwen2_vl_2b``, each field equal to the
+reference's.
 """
 from __future__ import annotations
 
@@ -36,6 +36,20 @@ class SSMConfig:
 
 
 @dataclasses.dataclass(frozen=True)
+class RWKVConfig:
+    head_dim: int = 64
+    decay_lora: int = 64          # low-rank size of the data-dependent decay
+
+
+@dataclasses.dataclass(frozen=True)
+class EncoderConfig:
+    """Encoder stack of an encoder-decoder model (whisper)."""
+
+    n_layers: int
+    n_ctx: int                    # encoder positions (audio frames)
+
+
+@dataclasses.dataclass(frozen=True)
 class ModelConfig:
     name: str
     family: str
@@ -48,14 +62,19 @@ class ModelConfig:
     head_dim: int = 0                       # 0 -> d_model // n_heads
     moe: MoEConfig | None = None
     ssm: SSMConfig | None = None
+    rwkv: RWKVConfig | None = None
+    encoder: EncoderConfig | None = None
     attn_every: int = 1                     # jamba: 1 attn per N layers
+    frontend: str | None = None             # None | "audio" | "vision"
     act: str = "silu"
     norm: str = "rmsnorm"
     use_bias: bool = False
     tie_embeddings: bool = False
     rope_theta: float = 10000.0
+    mrope_sections: tuple[int, int, int] | None = None   # qwen2-vl M-RoPE
     max_seq_len: int = 1 << 19
     dtype: str = "bfloat16"
+    kv_cache_dtype: str = ""                # "" = model dtype
     subquadratic: bool = False              # eligible for long contexts
 
     def __post_init__(self) -> None:
@@ -87,7 +106,8 @@ class ModelConfig:
         """Parameters of the tree that ``models.params.init_params``
         builds.  Unlike the reference's approximate count it includes
         each Mamba layer's ``w_bc``, ``w_dt`` and per-head vectors
-        (ROADMAP §C), the biases of a ``use_bias`` config and the
+        (ROADMAP §C), an RWKV layer's decay, bonus and mix vectors and
+        its channel mix, the biases of a ``use_bias`` config and the
         LayerNorm biases."""
         d, f, v = self.d_model, self.d_ff, self.vocab_size
         hd = self.head_dim
@@ -97,12 +117,18 @@ class ModelConfig:
         def mlp(ff: int) -> int:
             return 3 * d * ff + bias * (2 * ff + d)
 
+        q, kv = self.n_heads * hd, self.n_kv_heads * hd
+        attn = d * (q + 2 * kv) + q * d + bias * (q + 2 * kv + d)
         total = v * d * (1 if self.tie_embeddings else 2) + norm
         for i in range(self.n_layers):
+            if self.rwkv is not None:
+                # time mix: r, k, v, g, o; the decay LoRA; w0, u, 5 mixes
+                total += 5 * d * d + 2 * d * self.rwkv.decay_lora + 7 * d
+                # channel mix: k, v and its mix
+                total += 2 * d * f + d + 2 * norm
+                continue
             if self.layer_is_attn(i):
-                q, kv = self.n_heads * hd, self.n_kv_heads * hd
-                total += d * (q + 2 * kv) + q * d
-                total += bias * (q + 2 * kv + d)
+                total += attn
             elif self.ssm is not None:
                 di = self.ssm.expand * d
                 h = di // self.ssm.head_dim
@@ -117,6 +143,11 @@ class ModelConfig:
             else:
                 total += mlp(f)
             total += 2 * norm
+        if self.encoder is not None:
+            # the encoder's layers and final norm; a decoder layer's
+            # cross-attention and its norm
+            total += self.encoder.n_layers * (attn + mlp(f) + 2 * norm)
+            total += norm + self.n_layers * (attn + norm)
         return total
 
     def active_param_count(self) -> int:
@@ -130,8 +161,7 @@ class ModelConfig:
             expert * (1 - moe.top_k / moe.n_experts))
 
     def reduced(self, **overrides) -> "ModelConfig":
-        """A small same-family config for CPU tests (the reference's
-        ``reduced()`` for the dense and hybrid families)."""
+        """A small same-family config for CPU tests."""
         changes: dict = dict(
             n_layers=min(self.n_layers, 2 if self.attn_every <= 1
                          else 2 * self.attn_every),
@@ -154,6 +184,19 @@ class ModelConfig:
         if self.ssm is not None:
             changes["ssm"] = dataclasses.replace(
                 self.ssm, d_state=16, head_dim=32)
+        if self.rwkv is not None:
+            changes["rwkv"] = dataclasses.replace(
+                self.rwkv, head_dim=32, decay_lora=16)
+        if self.encoder is not None:
+            changes["encoder"] = dataclasses.replace(
+                self.encoder, n_layers=2, n_ctx=32)
+        if self.mrope_sections is not None:
+            # rescale the sections to the reduced head_dim (hd/2 channels)
+            hd = changes["head_dim"]
+            total = sum(self.mrope_sections)
+            t = self.mrope_sections[0] * (hd // 2) // total
+            h = self.mrope_sections[1] * (hd // 2) // total
+            changes["mrope_sections"] = (t, h, hd // 2 - t - h)
         changes.update(overrides)
         return dataclasses.replace(self, **changes)
 
@@ -276,9 +319,70 @@ ARCTIC_480B = ModelConfig(
     max_seq_len=32_768,
 )
 
+#: rwkv6-3b [ssm] — Finch, arXiv:2404.05892 (attention-free): 32L,
+#: d_model=2560, d_ff=8960, vocab=65536; RWKV-6 time mix with a
+#: data-dependent per-channel decay, squared-relu channel mix.
+RWKV6_3B = ModelConfig(
+    name="rwkv6-3b",
+    family="ssm",
+    n_layers=32,
+    d_model=2560,
+    n_heads=40,              # time-mix heads, head_dim 64
+    n_kv_heads=40,
+    d_ff=8960,
+    vocab_size=65536,
+    rwkv=RWKVConfig(head_dim=64, decay_lora=64),
+    act="relu_squared",
+    subquadratic=True,
+    max_seq_len=1 << 20,
+)
+
+#: whisper-medium [audio enc-dec] — arXiv:2212.04356: 24L decoder (+24L
+#: encoder), d_model=1024, 16H, d_ff=4096, vocab=51865, LayerNorm,
+#: biases, sinusoidal positions.  The conv audio front end is a stub:
+#: the encoder takes (B, 1500, d_model) frame embeddings.
+WHISPER_MEDIUM = ModelConfig(
+    name="whisper-medium",
+    family="encdec",
+    n_layers=24,
+    d_model=1024,
+    n_heads=16,
+    n_kv_heads=16,
+    d_ff=4096,
+    vocab_size=51865,
+    encoder=EncoderConfig(n_layers=24, n_ctx=1500),
+    frontend="audio",
+    act="gelu",
+    norm="layernorm",
+    use_bias=True,
+    rope_theta=0.0,
+    max_seq_len=32_768,
+)
+
+#: qwen2-vl-2b [vlm] — arXiv:2409.12191: 28L, d_model=1536, 12H (GQA
+#: kv=2), d_ff=8960, vocab=151936, tied; M-RoPE (temporal / height /
+#: width sections).  The vision front end is a stub.
+QWEN2_VL_2B = ModelConfig(
+    name="qwen2-vl-2b",
+    family="vlm",
+    n_layers=28,
+    d_model=1536,
+    n_heads=12,
+    n_kv_heads=2,
+    d_ff=8960,
+    vocab_size=151936,
+    frontend="vision",
+    use_bias=True,
+    tie_embeddings=True,
+    mrope_sections=(16, 24, 24),
+    rope_theta=1_000_000.0,
+    max_seq_len=32_768,
+)
+
 _REGISTRY = {c.name: c for c in (
-    COMMAND_R_PLUS_104B, MISTRAL_LARGE_123B, STABLELM_3B, SMOLLM_135M,
-    ARCTIC_480B, MOONSHOT_V1_16B_A3B, JAMBA_1_5_LARGE)}
+    WHISPER_MEDIUM, COMMAND_R_PLUS_104B, MISTRAL_LARGE_123B, STABLELM_3B,
+    SMOLLM_135M, ARCTIC_480B, MOONSHOT_V1_16B_A3B, RWKV6_3B,
+    JAMBA_1_5_LARGE, QWEN2_VL_2B)}
 
 ARCH_IDS = tuple(_REGISTRY)
 

@@ -76,20 +76,25 @@ class EngineConfig:
 
 
 def _reset_state_slot(state: dict, i: int) -> None:
-    """Zero slot ``i``'s clock and recurrent (Mamba) state, in place.
-    Dense KV caches need no clearing (the per-row position mask hides
-    stale entries); packed KV pages are cleared so their bytes do not
-    depend on the slot's previous request."""
+    """Zero slot ``i``'s clock and recurrent state (Mamba; RWKV's state
+    and token shifts), in place.  Dense KV caches need no clearing (the
+    per-row position mask hides stale entries); packed KV pages are
+    cleared so their bytes do not depend on the slot's previous
+    request."""
     state["pos"][i] = 0
     if "packed_kv" in state:
         state["packed_kv"].reset(i)
     if "ssm" in state:
         state["ssm"][:, :, i] = 0.0
+    for key in ("rwkv", "shift_t", "shift_c"):
+        if key in state:
+            state[key][:, i] = 0.0
 
 
 class DenseAdapter:
-    """Full-batch stepping over ``Model.decode_step`` (dense and hybrid
-    families, unquantized weights).
+    """Full-batch stepping over ``Model.decode_step`` (any family,
+    unquantized weights; an encoder-decoder steps without its
+    cross-attention, as in the reference).
 
     Inactive rows step with token 0 and their results are discarded, as
     in the reference: every step runs the whole batch.  Everything runs on

@@ -4,8 +4,12 @@
         --packed --bits 3 [--reduced] [--device cpu]
     PYTHONPATH=src python -m repro_torch.launch.serve --arch stablelm-3b \
         --packed --bits 3 [--reduced] [--device cpu]
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-vl-2b \
+        --packed --bits 3 [--reduced] [--device cpu]
     PYTHONPATH=src python -m repro_torch.launch.serve \
         --arch jamba-1.5-large-398b --reduced [--device cpu]
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch rwkv6-3b \
+        --reduced [--device cpu]
 
 Port of ``src/repro/launch/serve.py``, same flags plus ``--device``
 (default ``cuda``).  Weights are seeded random (``--seed``).  With
@@ -14,10 +18,12 @@ Iris streams by :func:`repro_torch.tree.pack_tree`; as in the reference,
 lane-packable widths (2/4/8) serve through the lane-packed kernel views
 (``packed_matmul``) and every other width stream-direct
 (``stream_matmul`` reads the streams), and the KV cache is a packed Iris
-stream read by the stream attention kernel (dense archs only, LayerNorm
-and biased ones included).  Without ``--packed`` the model serves
-unquantized through ``DenseAdapter`` (``Model.decode_step``): dense, MoE
-or hybrid, experts included.
+stream read by the stream attention kernel (the archs of one ``attn ->
+mlp`` sublayer: the dense ones, LayerNorm and biased ones included, and
+qwen2-vl with M-RoPE).  Without ``--packed`` the model serves
+unquantized through ``DenseAdapter`` (``Model.decode_step``): any
+family, experts included; whisper's decoder steps without its
+cross-attention, as in the reference.
 """
 from __future__ import annotations
 

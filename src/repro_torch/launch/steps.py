@@ -3,7 +3,8 @@
 Port of ``src/repro/launch/steps.py:38-57``:
 
 * ``prefill_step(params, batch)`` — forward logits + prefill KV caches
-* ``serve_step(params, state, tokens)`` — one decode token
+* ``serve_step(params, state, tokens, cross_kv=None)`` — one decode
+  token (``cross_kv``: an encoder-decoder's cross K/V)
 
 Built per config.  PyTorch runs eagerly, so there is nothing to jit;
 ``build_train_step`` comes with training (ROADMAP A14).
@@ -29,7 +30,7 @@ def build_prefill_step(cfg) -> Callable:
 def build_serve_step(cfg) -> Callable:
     model = Model(cfg)
 
-    def serve_step(params: dict, state: dict, tokens):
-        return model.decode_step(params, state, tokens)
+    def serve_step(params: dict, state: dict, tokens, cross_kv=None):
+        return model.decode_step(params, state, tokens, cross_kv)
 
     return serve_step

@@ -3,9 +3,10 @@
 Port of ``src/repro/models/attention.py``: :data:`NEG_INF`,
 :func:`init_attention`, :func:`_project`, :func:`flash_attention`
 (``:64-130``), :func:`decode_attention`, :func:`stream_decode_attention`
-over a packed KV cache, :func:`attention_block` (``:182-200``) and
-:func:`attention_decode_block` (``:202-222``).  Cross-attention comes
-with the encoder-decoder family.
+over a packed KV cache, :func:`attention_block` (``:182-200``),
+:func:`attention_decode_block` (``:202-222``), and whisper's
+cross-attention: :func:`cross_kv` and :func:`cross_attention_block`
+(``:224-243``).
 
 :func:`flash_attention` is the reference's online softmax over query and
 key/value blocks, in plain PyTorch (it is no Pallas kernel): f32 scores
@@ -147,17 +148,23 @@ def stream_decode_attention(kvc, q: torch.Tensor, pos: torch.Tensor,
     return stream_attention_cache(kvc, q, pos, slot_ids, layer=layer)
 
 
-def attention_block(cfg, p: dict, x: torch.Tensor, positions: torch.Tensor,
-                    inv_freq) -> torch.Tensor:
-    """Full-sequence causal self-attention (prefill).  x: (B, S, d)."""
+def attention_block(cfg, p: dict, x: torch.Tensor, positions, inv_freq,
+                    causal: bool = True,
+                    kv_override: tuple[torch.Tensor, torch.Tensor] | None
+                    = None) -> torch.Tensor:
+    """Full-sequence attention (prefill, encoder, or cross-attention over
+    ``kv_override``, the encoder memory's K/V).  x: (B, S, d)."""
     b, s, _ = x.shape
     h, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     q = _project(cfg, p, x, "q").reshape(b, s, h, hd)
-    k = _project(cfg, p, x, "k").reshape(b, s, hkv, hd)
-    v = _project(cfg, p, x, "v").reshape(b, s, hkv, hd)
-    q = apply_rope(q, positions, inv_freq)
-    k = apply_rope(k, positions, inv_freq)
-    out = flash_attention(q, k, v, causal=True)
+    if kv_override is None:
+        k = _project(cfg, p, x, "k").reshape(b, s, hkv, hd)
+        v = _project(cfg, p, x, "v").reshape(b, s, hkv, hd)
+        q = apply_rope(q, positions, inv_freq, cfg.mrope_sections)
+        k = apply_rope(k, positions, inv_freq, cfg.mrope_sections)
+    else:
+        k, v = kv_override
+    out = flash_attention(q, k, v, causal=causal)
     return _project(cfg, p, out.reshape(b, s, h * hd), "o")
 
 
@@ -177,8 +184,8 @@ def attention_decode_block(cfg, p: dict, x: torch.Tensor,
     k = _project(cfg, p, x, "k").reshape(b, 1, hkv, hd)
     v = _project(cfg, p, x, "v").reshape(b, 1, hkv, hd)
     pos_b = pos[:, None]
-    q = apply_rope(q, pos_b, inv_freq)
-    k = apply_rope(k, pos_b, inv_freq)
+    q = apply_rope(q, pos_b, inv_freq, cfg.mrope_sections)
+    k = apply_rope(k, pos_b, inv_freq, cfg.mrope_sections)
     rows = torch.arange(b, device=x.device)
     smax = k_cache.shape[1]
     idx = pos.to(torch.int64).clamp(max=smax - 1)
@@ -189,3 +196,25 @@ def attention_decode_block(cfg, p: dict, x: torch.Tensor,
                                      v_cache[rows, idx])
     out = decode_attention(q, k_cache, v_cache, pos)
     return _project(cfg, p, out.reshape(b, 1, h * hd), "o")
+
+
+def cross_kv(cfg, p: dict, memory: torch.Tensor
+             ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Encoder memory (B, ctx, d) to cross K/V, each (B, ctx, Hkv, hd)."""
+    b, s, _ = memory.shape
+    hkv, hd = cfg.n_kv_heads, cfg.head_dim
+    k = _project(cfg, p, memory, "k").reshape(b, s, hkv, hd)
+    v = _project(cfg, p, memory, "v").reshape(b, s, hkv, hd)
+    return k, v
+
+
+def cross_attention_block(cfg, p: dict, x: torch.Tensor,
+                          memory: torch.Tensor | None = None,
+                          kv: tuple[torch.Tensor, torch.Tensor] | None = None
+                          ) -> torch.Tensor:
+    """Decoder cross-attention over the encoder ``memory`` (prefill) or
+    its precomputed ``kv`` (decode)."""
+    if kv is None:
+        kv = cross_kv(cfg, p, memory)
+    return attention_block(cfg, p, x, None, None, causal=False,
+                           kv_override=kv)

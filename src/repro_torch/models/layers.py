@@ -2,9 +2,9 @@
 
 Port of ``src/repro/models/layers.py`` (:func:`dense_init`,
 :func:`init_norm`, :func:`apply_norm`, :func:`activation`,
-:func:`rope_freqs`, :func:`apply_rope`, :func:`init_mlp`,
-:func:`apply_mlp`; M-RoPE and the sinusoidal table are left out with the
-VLM and encoder-decoder families).  Plain functions on tensors;
+:func:`rope_freqs`, :func:`apply_rope` with qwen2-vl's M-RoPE,
+:func:`sinusoidal_positions`, :func:`init_mlp`, :func:`apply_mlp`).
+Plain functions on tensors;
 parameters are plain dicts, as in the reference.  The init functions take
 a ``torch.Generator`` and a leading shape ``lead`` (the stacking over
 periods that the reference gets from ``vmap``).
@@ -61,25 +61,61 @@ def activation(name: str, x: torch.Tensor) -> torch.Tensor:
     raise ValueError(f"unknown activation {name!r}")
 
 
+def _pow_f32(base: float, x: torch.Tensor) -> torch.Tensor:
+    """``base ** x`` for f32 exponents ``x``, taken in f64 and rounded
+    once: the correctly rounded f32 values the reference's ``base ** x``
+    gives.  An f32 ``pow`` is off by an ulp at some exponents, which
+    moves the angles of late positions by ~1e-5."""
+    return (base ** x.to(torch.float64)).to(torch.float32)
+
+
 def rope_freqs(cfg, device=None) -> torch.Tensor | None:
     if not cfg.rope_theta:
         return None
     hd = cfg.head_dim
-    return cfg.rope_theta ** (
-        -torch.arange(0, hd, 2, dtype=torch.float32, device=device) / hd)
+    return _pow_f32(cfg.rope_theta, -torch.arange(
+        0, hd, 2, dtype=torch.float32, device=device) / hd)
 
 
 def apply_rope(x: torch.Tensor, positions: torch.Tensor,
-               inv_freq: torch.Tensor | None) -> torch.Tensor:
-    """x: (B, S, H, hd); positions: (B, S).  Rotate-half RoPE in f32."""
+               inv_freq: torch.Tensor | None,
+               mrope_sections: tuple[int, int, int] | None = None
+               ) -> torch.Tensor:
+    """x: (B, S, H, hd); positions: (B, S), or (B, S, 3) for M-RoPE.
+    Rotate-half RoPE in f32.
+
+    M-RoPE (qwen2-vl, ``src/repro/models/layers.py:80-105``): the hd/2
+    frequency channels are split into (temporal, height, width) sections,
+    each rotated by its own position stream.  For text tokens the three
+    streams are equal, which is standard RoPE."""
     if inv_freq is None:
         return x
-    angles = positions[..., None].to(torch.float32) * inv_freq   # (B,S,hd/2)
+    if positions.ndim == 2:
+        positions = positions[..., None].expand(*positions.shape, 3)
+    if mrope_sections is None:
+        pos = positions[..., :1]                                 # (B, S, 1)
+    else:
+        if sum(mrope_sections) != inv_freq.shape[0]:
+            raise ValueError(f"mrope_sections {mrope_sections} do not sum "
+                             f"to {inv_freq.shape[0]} channels")
+        pos = torch.cat([positions[..., i:i + 1].expand(
+            *positions.shape[:-1], n) for i, n in enumerate(mrope_sections)],
+            dim=-1)                                              # (B,S,hd/2)
+    angles = pos.to(torch.float32) * inv_freq                    # (B,S,hd/2)
     cos = torch.cos(angles)[:, :, None, :]
     sin = torch.sin(angles)[:, :, None, :]
     x1, x2 = torch.chunk(x.to(torch.float32), 2, dim=-1)
     y = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
     return y.to(x.dtype)
+
+
+def sinusoidal_positions(n_ctx: int, d: int, device=None) -> torch.Tensor:
+    """Whisper-style sinusoidal table (n_ctx, d) f32."""
+    inv = _pow_f32(10000, -torch.arange(0, d, 2, dtype=torch.float32,
+                                        device=device) / d)
+    ang = torch.arange(n_ctx, dtype=torch.float32, device=device)[:, None] \
+        * inv
+    return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1)
 
 
 def init_mlp(gen: torch.Generator, cfg, *, d_ff: int | None = None,

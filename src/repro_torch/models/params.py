@@ -1,16 +1,18 @@
 """Model parameters: seeded init and hand-over from the reference.
 
 :func:`init_params` builds a parameter tree with the structure of the
-reference's ``Model.init`` (``src/repro/models/model.py:49-71``) for the
-dense and hybrid families: ``embed``, ``blocks`` (one dict per entry of
-the period template, every leaf stacked over periods; see
-``transformer.init_stack``), ``final_norm`` and, untied, ``unembed``.
-Weights are truncated normals in f32 scaled like the reference's
-``dense_init`` and cast to the model dtype; a Mamba sublayer's
-``dt_bias`` / ``a_log`` / ``d_skip`` are f32 zeros / zeros / ones, as in
-``init_mamba``.  The numbers differ from the reference's (different
-generators): tests hand the reference's weights over with
-:func:`params_from_jax`.
+reference's ``Model.init`` (``src/repro/models/model.py:49-71``) for
+every family: ``embed``, ``blocks`` (one dict per entry of the period
+template, every leaf stacked over periods; see
+``transformer.init_stack``), ``final_norm``, ``unembed`` when untied, and
+for an encoder-decoder ``encoder`` with its own ``blocks`` and
+``final_norm``.  Weights are truncated normals in f32 scaled like the
+reference's ``dense_init`` and cast to the model dtype; a Mamba
+sublayer's ``dt_bias`` / ``a_log`` / ``d_skip`` are f32 zeros / zeros /
+ones, as in ``init_mamba``, and an RWKV sublayer's ``decay_w0`` /
+``bonus_u`` / ``mix`` f32 -2 / 0 / 0.5, as in ``init_rwkv_time_mix``.
+The numbers differ from the reference's (different generators): tests
+hand the reference's weights over with :func:`params_from_jax`.
 """
 from __future__ import annotations
 
@@ -19,14 +21,14 @@ import torch
 
 from ..device import resolve_device
 from .layers import dense_init, init_norm
-from .transformer import init_stack
+from .transformer import encoder_config, init_stack
 
 
 def init_params(cfg, generator: torch.Generator | None = None, *,
                 device=None) -> dict:
     """Seeded parameters on ``device`` (``"cuda"`` unless given), drawn
     from ``generator`` (on that device; seed 0 if None): the blocks
-    first, then ``embed`` and ``unembed``."""
+    first, then ``embed``, ``unembed`` and the encoder's blocks."""
     device = resolve_device(device)
     gen = generator
     if gen is None:
@@ -39,6 +41,10 @@ def init_params(cfg, generator: torch.Generator | None = None, *,
     if not cfg.tie_embeddings:
         params["unembed"] = dense_init(gen, cfg.d_model, cfg.vocab_size,
                                        dtype, device=device)
+    if cfg.encoder is not None:
+        params["encoder"] = {
+            "blocks": init_stack(gen, encoder_config(cfg), device=device),
+            "final_norm": init_norm(cfg, cfg.d_model, device=device)}
     return params
 
 

@@ -1,6 +1,6 @@
 """Quantized decode path: serve from Iris-packed weight streams.
 
-Port of ``src/repro/models/quantized.py:39-44, 73-293``:
+Port of ``src/repro/models/quantized.py:38-43, 73-293``:
 :func:`quantizable`, :func:`_pmm`, :func:`_pmm_direct`,
 :func:`packed_decode_step` (``weights``, ``slot_ids``, ``stream_source``,
 ``kv``, ``kv_attention``) and :func:`bytes_per_token_report`.  A weight matmul
@@ -28,11 +28,16 @@ import torch
 from ..kernels.packed_matmul import packed_matmul, packed_matmul_plain
 from .attention import decode_attention, stream_decode_attention
 from .layers import activation, apply_norm, apply_rope, rope_freqs
+from .transformer import period_template
 
 
 def quantizable(cfg) -> bool:
-    """The packed decode path covers the dense sublayer template."""
-    return cfg.family == "dense"
+    """The packed decode path covers the dense sublayer template: one
+    ``attn -> mlp`` sublayer a period, without cross-attention (the dense
+    family and qwen2-vl)."""
+    t = period_template(cfg)
+    return (len(t) == 1 and t[0].mixer == "attn" and t[0].ffn == "mlp"
+            and not t[0].cross)
 
 
 def init_decode_state(cfg, batch_size: int, max_seq: int, *,
@@ -154,8 +159,8 @@ def packed_decode_step(cfg, pp, state: dict, tokens: torch.Tensor, *,
             kk = kk + other["attn/bk"][layer].reshape(1, 1, hkv, hd)
             vv = vv + other["attn/bv"][layer].reshape(1, 1, hkv, hd)
         pos_b = pos[:, None]
-        q = apply_rope(q, pos_b, inv_freq)
-        kk = apply_rope(kk, pos_b, inv_freq)
+        q = apply_rope(q, pos_b, inv_freq, cfg.mrope_sections)
+        kk = apply_rope(kk, pos_b, inv_freq, cfg.mrope_sections)
         if kvc is not None:
             kvc.append(kk[:, 0], vv[:, 0], pos, rows, layer=layer)
             att = stream_decode_attention(

@@ -1,18 +1,21 @@
-"""Layer stack for the dense, MoE and hybrid families.
+"""Layer stack for every model family.
 
 Port of ``src/repro/models/transformer.py``: :class:`SubLayerSpec`,
 :func:`period_template` (``:42-52``), :func:`n_periods`,
 :func:`init_stack` (``:88-100``), :func:`_sublayer_forward`
 (``:105-149``) and :func:`forward_stack` (``:152-195``).  A period is the
-smallest repeating sublayer template: one ``[attn -> mlp|moe]`` sublayer
-for the dense and MoE families; ``attn_every`` sublayers for the hybrid
-(jamba), the last one attention and the rest Mamba, their FFNs MoE where
-``cfg.layer_is_moe``.  Every parameter leaf is stacked over periods, as
-in the reference; where the reference scans over periods, this is a
-Python loop.  There is no remat (a training concern, ROADMAP A14).
+smallest repeating sublayer template:
 
-Not yet ported, and refused with ``NotImplementedError``: the RWKV
-(``ssm``), encoder-decoder and VLM families (ROADMAP A13c-e).
+* dense / MoE / VLM: one ``[attn -> mlp|moe]`` sublayer;
+* ssm (RWKV-6): one ``[time mix -> channel mix]`` sublayer;
+* hybrid (jamba): ``attn_every`` sublayers, the last one attention and
+  the rest Mamba, their FFNs MoE where ``cfg.layer_is_moe``;
+* encdec (whisper): the decoder's sublayer carries a cross-attention
+  over the encoder's memory; the encoder is a dense stack of its own.
+
+Every parameter leaf is stacked over periods, as in the reference;
+where the reference scans over periods, this is a Python loop.  There is
+no remat (a training concern, ROADMAP A14).
 """
 from __future__ import annotations
 
@@ -23,28 +26,33 @@ import torch
 from . import attention as attn
 from . import mamba as mam
 from . import moe as moe_mod
+from . import rwkv as rwkv_mod
 from .layers import apply_mlp, apply_norm, init_mlp, init_norm, rope_freqs
 
 
 @dataclasses.dataclass(frozen=True)
 class SubLayerSpec:
-    mixer: str                   # "attn" | "mamba"
-    ffn: str                     # "mlp" | "moe"
-
-
-def check_supported(cfg) -> None:
-    """Raise for the families of A13 that later PRs port."""
-    if cfg.family not in ("dense", "moe", "hybrid"):
-        raise NotImplementedError(
-            f"{cfg.name}: the {cfg.family!r} family is not ported yet "
-            f"(ROADMAP A13)")
+    mixer: str                   # "attn" | "mamba" | "rwkv"
+    ffn: str                     # "mlp" | "moe" | "rwkv_channel"
+    cross: bool = False          # whisper decoder cross-attention
 
 
 def period_template(cfg) -> tuple[SubLayerSpec, ...]:
-    check_supported(cfg)
+    if cfg.family == "ssm":
+        return tuple(SubLayerSpec("rwkv", "rwkv_channel")
+                     for _ in range(max(1, cfg.attn_every)))
     return tuple(SubLayerSpec("attn" if cfg.layer_is_attn(s) else "mamba",
-                              "moe" if cfg.layer_is_moe(s) else "mlp")
+                              "moe" if cfg.layer_is_moe(s) else "mlp",
+                              cross=cfg.family == "encdec")
                  for s in range(max(1, cfg.attn_every)))
+
+
+def encoder_config(cfg):
+    """The encoder stack's config: a dense stack of the encoder's depth
+    (``src/repro/models/model.py:64-66``)."""
+    return dataclasses.replace(cfg, family="dense",
+                               n_layers=cfg.encoder.n_layers, attn_every=1,
+                               moe=None)
 
 
 def n_periods(cfg) -> int:
@@ -57,21 +65,29 @@ def n_periods(cfg) -> int:
 
 def init_stack(gen: torch.Generator, cfg, *, device=None) -> list[dict]:
     """Per-sublayer parameter trees, each leaf stacked over n_periods.
-    Draws the mixer's weights, then the FFN's, sublayer after sublayer."""
+    Draws the mixer's weights, the cross-attention's, then the FFN's,
+    sublayer after sublayer."""
     lead = (n_periods(cfg),)
+    kw = dict(lead=lead, device=device)
     out = []
     for spec in period_template(cfg):
-        p = {"norm1": init_norm(cfg, cfg.d_model, lead=lead, device=device),
-             "norm2": init_norm(cfg, cfg.d_model, lead=lead, device=device)}
+        p = {"norm1": init_norm(cfg, cfg.d_model, **kw),
+             "norm2": init_norm(cfg, cfg.d_model, **kw)}
         if spec.mixer == "attn":
-            p["attn"] = attn.init_attention(gen, cfg, lead=lead,
-                                            device=device)
+            p["attn"] = attn.init_attention(gen, cfg, **kw)
+        elif spec.mixer == "mamba":
+            p["mamba"] = mam.init_mamba(gen, cfg, **kw)
         else:
-            p["mamba"] = mam.init_mamba(gen, cfg, lead=lead, device=device)
+            p["rwkv_t"] = rwkv_mod.init_rwkv_time_mix(gen, cfg, **kw)
+        if spec.cross:
+            p["cross"] = attn.init_attention(gen, cfg, **kw)
+            p["norm_cross"] = init_norm(cfg, cfg.d_model, **kw)
         if spec.ffn == "moe":
-            p["moe"] = moe_mod.init_moe(gen, cfg, lead=lead, device=device)
+            p["moe"] = moe_mod.init_moe(gen, cfg, **kw)
+        elif spec.ffn == "mlp":
+            p["mlp"] = init_mlp(gen, cfg, **kw)
         else:
-            p["mlp"] = init_mlp(gen, cfg, lead=lead, device=device)
+            p["rwkv_c"] = rwkv_mod.init_rwkv_channel_mix(gen, cfg, **kw)
         out.append(p)
     return out
 
@@ -85,9 +101,10 @@ def period_params(tree, i: int):
 
 def _sublayer_forward(cfg, spec: SubLayerSpec, p: dict, x: torch.Tensor,
                       positions: torch.Tensor, inv_freq,
-                      collect_cache: bool = False):
-    """Returns (x, aux loss f32 scalar, cache_kv or None).  The Mamba
-    final state is discarded, as in the reference (``:125``)."""
+                      cross_memory: torch.Tensor | None = None,
+                      causal: bool = True, collect_cache: bool = False):
+    """Returns (x, aux loss f32 scalar, cache_kv or None).  The Mamba and
+    RWKV final states are discarded, as in the reference (``:125-128``)."""
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     cache = None
     h = apply_norm(cfg, p["norm1"], x)
@@ -98,26 +115,41 @@ def _sublayer_forward(cfg, spec: SubLayerSpec, p: dict, x: torch.Tensor,
                 b, s, cfg.n_kv_heads, cfg.head_dim)
             v = attn._project(cfg, p["attn"], h, "v").reshape(
                 b, s, cfg.n_kv_heads, cfg.head_dim)
-            k = attn.apply_rope(k, positions, inv_freq)
+            k = attn.apply_rope(k, positions, inv_freq, cfg.mrope_sections)
             cache = (k, v)
-        x = x + attn.attention_block(cfg, p["attn"], h, positions, inv_freq)
-    else:
+        x = x + attn.attention_block(cfg, p["attn"], h, positions, inv_freq,
+                                     causal=causal)
+    elif spec.mixer == "mamba":
         y, _ = mam.apply_mamba(cfg, p["mamba"], h)
         x = x + y
+    else:
+        y, _, _ = rwkv_mod.apply_rwkv_time_mix(cfg, p["rwkv_t"], h)
+        x = x + y
+    if spec.cross and cross_memory is not None:
+        hc = apply_norm(cfg, p["norm_cross"], x)
+        x = x + attn.cross_attention_block(cfg, p["cross"], hc,
+                                           memory=cross_memory)
     h2 = apply_norm(cfg, p["norm2"], x)
     if spec.ffn == "moe":
         y, aux = moe_mod.apply_moe(cfg, p["moe"], h2)
         x = x + y
-    else:
+    elif spec.ffn == "mlp":
         x = x + apply_mlp(cfg, p["mlp"], h2)
+    else:
+        y, _ = rwkv_mod.apply_rwkv_channel_mix(cfg, p["rwkv_c"], h2)
+        x = x + y
     return x, aux, cache
 
 
 def forward_stack(cfg, blocks: list[dict], x: torch.Tensor,
-                  positions: torch.Tensor, *, collect_cache: bool = False):
+                  positions: torch.Tensor, *,
+                  cross_memory: torch.Tensor | None = None,
+                  causal: bool = True, collect_cache: bool = False):
     """Run the period stack.  Returns (x, total aux loss, caches or
     None): per attention sublayer, (k, v) stacked over periods
-    (n_periods, B, S, Hkv, hd)."""
+    (n_periods, B, S, Hkv, hd).  ``cross_memory`` (B, ctx, d) is the
+    encoder's output that the decoder's cross-attention reads;
+    ``causal=False`` is the encoder's self-attention."""
     template = period_template(cfg)
     inv_freq = rope_freqs(cfg, x.device)
     total = torch.zeros((), dtype=torch.float32, device=x.device)
@@ -127,7 +159,7 @@ def forward_stack(cfg, blocks: list[dict], x: torch.Tensor,
         for si, spec in enumerate(template):
             x, aux, cache = _sublayer_forward(
                 cfg, spec, period_params(blocks[si], i), x, positions,
-                inv_freq,
+                inv_freq, cross_memory=cross_memory, causal=causal,
                 collect_cache=collect_cache and spec.mixer == "attn")
             total = total + aux
             if cache is not None:

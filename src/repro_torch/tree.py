@@ -385,7 +385,8 @@ def pack_tree(cfg, params: dict, spec: QuantSpec, *, m: int = 4096,
             "stream-direct (with_kernel_views=False)")
     if not quantizable(cfg):
         raise NotImplementedError(
-            f"pack_tree covers dense-family archs; {cfg.name} is not")
+            f"pack_tree covers archs of one attn -> mlp sublayer (the "
+            f"dense family, qwen2-vl); {cfg.name} is not")
     if spec.scale_dtype not in ("bfloat16", "float16"):
         raise ValueError(
             f"stream packing stores 16-bit scale slots; scale_dtype "

@@ -185,7 +185,7 @@ def test_shapes_and_shape_cells_equal_reference():
         assert [c.name for c in port_configs.shape_cells(arch)] == \
             [c.name for c in ref_cells(arch)], arch
     with pytest.raises(KeyError):
-        port_configs.get_config("rwkv6-3b")
+        port_configs.get_config("no-such-arch")
 
 
 @pytest.mark.parametrize("name", list(CASES))

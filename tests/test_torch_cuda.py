@@ -916,3 +916,160 @@ def test_apply_moe_moonshot_widths_matches_oracle(cuda):
             assert err <= 4 * 2.0 ** (np.floor(np.log2(largest)) - 7)
         else:
             assert err <= tol
+
+
+#: (K, N) of qwen2-vl-2b's matrices: wq and wo, wk and wv, gate and up,
+#: down
+QWEN2_VL_MATS = [(1536, 1536), (1536, 256), (1536, 8960), (8960, 1536)]
+
+
+@pytest.mark.parametrize("k,n", QWEN2_VL_MATS)
+def test_stream_and_packed_matmul_qwen2_vl_shapes(cuda, k, n):
+    """int3 ``stream_matmul`` and int4 ``packed_matmul`` at qwen2-vl-2b's
+    widths and M = 1, 4, 8 against their plain versions; int4
+    ``packed_matmul`` bit-equal to ``stream_matmul`` over the same codes
+    in an Iris stream.  The weights have the model's init scale, K^-0.5,
+    so each output is O(1) as on the main path (unit weights would make a
+    K=8960 sum ~100 wide, where f32 summation-order noise alone passes
+    the 1e-4 tolerance)."""
+    from repro_torch.kernels import packed_matmul as pm
+    from repro_torch.kernels import stream_matmul as sm
+    from repro_torch.quant import QuantSpec, bits16, pack_codes_u32, quantize
+
+    rng = np.random.default_rng(k + 3 * n)
+    qts = {b: quantize(torch.from_numpy(
+        rng.standard_normal((k, n), np.float32) * k ** -0.5),
+        QuantSpec(bits=b, group_size=32)) for b in (3, 4)}
+    words3, w_tab3, s_tab3 = _pack_stream(
+        qts[3].codes.numpy().reshape(-1),
+        bits16(qts[3].scales).numpy().reshape(-1), 3, k, n, 32, cuda)
+    qt = qts[4]
+    pw, sc = pack_codes_u32(qt.codes, 4).to(cuda), qt.scales.to(cuda)
+    words4, w_tab4, s_tab4 = _pack_stream(
+        qt.codes.numpy().reshape(-1), bits16(qt.scales).numpy().reshape(-1),
+        4, k, n, 32, cuda)
+    for m in (1, 4, 8):
+        x = torch.from_numpy(rng.standard_normal((m, k), np.float32)) \
+            .to(cuda)
+        before = (sm.launches, pm.launches)
+        got3 = sm.stream_matmul(x, words3, w_tab3, s_tab3, bits=3,
+                                group_size=32)
+        got4 = pm.packed_matmul(x, pw, sc, bits=4, group_size=32)
+        torch.cuda.synchronize()
+        assert (sm.launches, pm.launches) == (before[0] + 1, before[1] + 1)
+        torch.testing.assert_close(
+            got3, sm.stream_matmul_plain(x, words3, w_tab3, s_tab3, bits=3,
+                                         group_size=32),
+            rtol=MM_RTOL, atol=MM_ATOL)
+        torch.testing.assert_close(
+            got4, pm.packed_matmul_plain(x, pw, sc, bits=4, group_size=32),
+            rtol=MM_RTOL, atol=MM_ATOL)
+        assert torch.equal(got4, sm.stream_matmul(
+            x, words4, w_tab4, s_tab4, bits=4, group_size=32))
+
+
+def test_stream_attention_qwen2_vl_heads(cuda):
+    """qwen2-vl-2b's attention: 12 query heads over 2 KV heads (rep 6) of
+    head_dim 128, int3, B=4, smax 256, ragged positions."""
+    import dataclasses
+    import sys
+
+    from repro_torch.configs import QWEN2_VL_2B
+    from repro_torch.kvcache import PackedKVCache
+    from repro_torch.kvcache import stream_attention as _  # noqa: F401
+
+    sa = sys.modules["repro_torch.kvcache.stream_attention"]
+    cfg = dataclasses.replace(QWEN2_VL_2B, n_layers=1)
+    b, bits, smax = 4, 3, 256
+    h, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    assert (h, hkv, hd) == (12, 2, 128)
+    kvc = PackedKVCache.create(cfg, bits=bits, page_tokens=8, n_slots=b,
+                               max_seq=smax, device=cuda)
+    rng = np.random.default_rng(128)
+    for t in range(smax):
+        k = torch.from_numpy(rng.standard_normal((b, hkv, hd), np.float32))
+        v = torch.from_numpy(rng.standard_normal((b, hkv, hd), np.float32))
+        kvc.append(k.to(cuda), v.to(cuda), torch.full((b,), t),
+                   torch.arange(b), layer=0)
+    pos = torch.tensor([255, 130, 31, 0], device=cuda)
+    slots = torch.tensor([1, 3, 0, 2], device=cuda)
+    q = torch.from_numpy(rng.standard_normal((b, 1, h, hd), np.float32)) \
+        .to(cuda).to(torch.bfloat16)
+    tabs = kvc.device_stream_tables()
+    args = (kvc.layer_words(0), slots, q, pos, tabs["k"], tabs["k_scales"],
+            tabs["v"], tabs["v_scales"])
+    before = sa.launches
+    got = sa.stream_attention(*args, bits=bits)
+    want = sa.stream_attention_plain(*args, bits=bits)
+    torch.cuda.synchronize()
+    assert sa.launches == before + 1
+    assert (got.float() - want.float()).abs().max().item() <= ATT_ATOL
+
+
+def test_qwen2_vl_layer_packed_decode_kernels_match_plain(cuda):
+    """One qwen2-vl-2b layer at full width (RMSNorm, biased projections
+    with seeded nonzero biases, tied embedding, M-RoPE), packed at int3
+    and int4: 4 ragged decode steps through the kernels against the same
+    steps through the plain versions over the pages the kernels wrote,
+    within 4 bf16 ulps of the largest logit; int4 also packed == stream
+    bit for bit."""
+    import copy
+    import dataclasses
+
+    from repro_torch.configs import QWEN2_VL_2B
+    from repro_torch.engine import PackedAdapter
+    from repro_torch.kernels import packed_matmul as pm
+    from repro_torch.kernels import stream_matmul as sm
+    from repro_torch.kvcache import stream_attention as _  # noqa: F401
+    from repro_torch.models.params import init_params
+    from repro_torch.models.quantized import packed_decode_step
+    from repro_torch.quant import QuantSpec
+    from repro_torch.tree import pack_tree
+    import sys
+
+    sa = sys.modules["repro_torch.kvcache.stream_attention"]
+    cfg = dataclasses.replace(QWEN2_VL_2B, n_layers=1, vocab_size=4096)
+    params = init_params(cfg, torch.Generator(device=cuda).manual_seed(2),
+                         device=cuda)
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    blocks = params["blocks"][0]
+    for sub, names in (("attn", ("bq", "bk", "bv", "bo")),
+                       ("mlp", ("b_gate", "b_up", "b_down"))):
+        for name in names:
+            t = blocks[sub][name]
+            blocks[sub][name] = (0.2 * torch.randn(
+                t.shape, generator=gen, device=cuda)).to(t.dtype)
+    rng = np.random.default_rng(5)
+    for bits in (3, 4):
+        tree = pack_tree(cfg, params, QuantSpec(bits=bits, group_size=32),
+                         device=cuda)
+        adapter = PackedAdapter(cfg, tree, kv="packed", kv_bits=bits)
+        state = adapter.init_state(4, 32)
+        for t in range(4):
+            slots = torch.arange(min(t + 1, 4), device=cuda)
+            tok = torch.from_numpy(rng.integers(1, cfg.vocab_size,
+                                                len(slots))).to(cuda)
+            pos = state["pos"]
+            before = (sm.launches, pm.launches, sa.launches)
+            got, state = packed_decode_step(cfg, tree, state, tok,
+                                            slot_ids=slots, kv="packed")
+            kernel = pm if bits == 4 else sm
+            assert kernel.launches == before[bits == 4] + 7
+            assert sa.launches == before[2] + 1
+            kvc = copy.copy(state["packed_kv"])
+            kvc.append = lambda *args, **kwargs: None
+            frozen = {"pos": pos, "packed_kv": kvc}
+            want, _ = packed_decode_step(cfg, tree, frozen, tok,
+                                         slot_ids=slots, kv="packed",
+                                         plain=True)
+            torch.cuda.synchronize()
+            largest = want.float().abs().max().item()
+            ulp = 2.0 ** (np.floor(np.log2(largest)) - 7)
+            assert torch.isfinite(got).all()
+            assert (got.float() - want.float()).abs().max().item() \
+                <= 4 * ulp
+            if bits == 4:
+                streamed, _ = packed_decode_step(
+                    cfg, tree, frozen, tok, slot_ids=slots, kv="packed",
+                    weights="stream")
+                assert torch.equal(got, streamed)

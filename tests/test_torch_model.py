@@ -195,19 +195,29 @@ def test_params_from_jax_carries_hybrid_tree(runs):
 
 
 def test_unported_families_raise():
-    """The families of ROADMAP A13c-e still raise; MoE (A13b) does not:
-    ``tests/test_torch_moe.py`` runs it."""
-    base = port_configs.SMOLLM_135M.reduced()
+    """No family of the reference is refused any more: the RWKV
+    (``ssm``), encoder-decoder and VLM configs of ROADMAP A13c-e build a
+    ``Model``, and ``init_params`` gives the reference's tree for each
+    (leaf paths, shapes, dtypes; ``tests/test_torch_rwkv.py``,
+    ``test_torch_encdec.py`` and ``test_torch_vlm.py`` run them)."""
     for name, family in (("rwkv6-3b", "ssm"), ("whisper-medium", "encdec"),
                          ("qwen2-vl-2b", "vlm")):
-        cfg = dataclasses.replace(base, name=name, family=family)
-        with pytest.raises(NotImplementedError, match="A13"):
-            Model(cfg)
-        with pytest.raises(NotImplementedError, match="A13"):
-            init_params(cfg, device="cpu")
-    with pytest.raises(NotImplementedError, match="A13"):
-        Model(dataclasses.replace(port_configs.SMOLLM_135M.reduced(),
-                                  family="ssm"))
+        pcfg = port_configs.get_config(name).reduced()
+        rcfg = get_config(name).reduced()
+        assert pcfg.family == rcfg.family == family
+        Model(pcfg)
+        ours = init_params(pcfg, device="cpu")
+        want = jax.tree_util.tree_leaves_with_path(jax.eval_shape(
+            RefModel(rcfg, remat="none").init, jax.random.PRNGKey(0)))
+        for path, leaf in want:
+            node = ours
+            for key in path:
+                node = node[getattr(key, "key", getattr(key, "idx", None))]
+            assert tuple(node.shape) == leaf.shape, (name, path)
+            assert str(node.dtype).split(".")[-1] == leaf.dtype.name, path
+        n_ours = len(jax.tree_util.tree_leaves(
+            jax.tree.map(lambda t: 0, ours, is_leaf=torch.is_tensor)))
+        assert n_ours == len(want), name
 
 
 # ----------------------------------------------------------------------
