@@ -157,17 +157,38 @@
     bf16 and f32 as in step 13; ``Engine(DenseAdapter)`` (without cross
     K/V, as the reference's adapter steps it) with 8 requests of 8 new
     tokens.  No kernel of the port is on this path.
-15. Prints each phase's wall seconds, one JSON ``serve`` line (ms per
+15. Training (:func:`run_train`).  ``train smollm-135m``: smollm-135m
+    at full width and depth (bf16 parameters, f32 moments, remat
+    "full") through ``run_training`` and ``build_train_step``, the train
+    CLI's path: B=8, S=1024, the synthetic pipeline at seed 0,
+    ``AdamWConfig(lr=3e-3, warmup_steps=10, total_steps=40)``, 40 steps
+    with a checkpoint every 10 in a temporary directory and one
+    simulated node failure at step 25 (``restarts == 1``, 45 steps run,
+    steps 20-24 replayed from the step-20 checkpoint and held against
+    the first run's losses; every loss finite; the last five below the
+    first); ms per step, tokens/s, peak memory, model FLOPs per step and
+    their share of the bf16 dense peak, then a profiler window of two
+    steps.  ``train step card == cpu``: one step of smollm-135m at full
+    width, f32 weights, B=2, S=128, on the card and on the CPU from the
+    same parameters and batch (no kernel of the port on this path).
+    ``train jamba (ssd_scan gradient)``: reduced jamba (``moe=None``, 8
+    layers) in f32, one ``Model.loss`` and gradient of every leaf on the
+    card (the forward through the ``ssd_scan`` kernel, its launches
+    counted; the backward through the scan's autograd Function) against
+    the CPU's, and against the card with the plain scan.
+16. Prints each phase's wall seconds, one JSON ``serve`` line (ms per
     step of the packed serves of stablelm-3b and qwen2-vl-2b, and of the
     unquantized serves of moonshot, rwkv6-3b and whisper-medium), one
-    JSON ``checkpoint`` line (the checkpoint phase's figures) and one
+    JSON ``checkpoint`` line (the checkpoint phase's figures), one JSON
+    ``train`` line (the training phases' figures) and one
     JSON ``kernels`` line (seven kernels, each with its ``device_ms``;
     the matmuls and ``stream_attention`` also with
     ``library_device_ms``; B1-B4 with a ``stablelm`` and a ``qwen2_vl``
     entry holding that path's row and launches; ``stream_attention``
     with its smax-2048 and rep-12 points, ``ssd_scan`` with its dk=128
     point; ``pack_layout_fused``'s launches include stablelm's 64 and
-    qwen2-vl's 56), the card line again, and last ``{"ok": true,
+    qwen2-vl's 56, ``ssd_scan``'s the training phase's), the card line
+    again, and last ``{"ok": true,
     "device": {...}}``.
 
 Any failed check raises, and the script exits non-zero without the last
@@ -1728,9 +1749,6 @@ def profile_steps(engine, prompts, label: str, n_steps: int = 4) -> None:
     """``torch.profiler`` over a few steady steps of ``engine`` (4 of
     ``prompts``, 64 new tokens each): time by operator, and the device's
     busy share of the window's wall time."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-
     from repro_torch.engine import EngineRequest
 
     for uid, prompt in enumerate(prompts[:4]):
@@ -1738,12 +1756,23 @@ def profile_steps(engine, prompts, label: str, n_steps: int = 4) -> None:
                                     max_new_tokens=64))
     for _ in range(3):
         engine.step()
+    profile_window(engine.step, label, n_steps)
+
+
+def profile_window(step, label: str, n_steps: int) -> dict:
+    """``torch.profiler`` over ``n_steps`` calls of ``step``: prints the
+    time by operator and the device's busy share of the window's wall
+    time; returns the window's wall ms, device-busy ms and the device
+    ms of its ten longest device operations."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for _ in range(n_steps):
-            engine.step()
+            step()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     events = prof.key_averages()
@@ -1763,6 +1792,10 @@ def profile_steps(engine, prompts, label: str, n_steps: int = 4) -> None:
     print(events.table(sort_by="self_cpu_time_total", row_limit=18,
                        max_name_column_width=48))
     print(events.table(sort_by=key, row_limit=12, max_name_column_width=48))
+    top = sorted(dev, key=lambda e: -getattr(e, key))[:10]
+    return {"wall_ms": wall * 1e3, "device_busy_ms": dev_us / 1e3,
+            "top_device_ms": {e.key[:80]: getattr(e, key) / 1e3
+                              for e in top}}
 
 
 def jamba_config():
@@ -2682,6 +2715,318 @@ def run_whisper(cfg, dev) -> dict:
     return {**out, "encode_ms": enc_ms, "prefill_ms": wall * 1e3}
 
 
+#: the smollm training cell: the CLI's recipe at B=8, S=1024
+TRAIN_B, TRAIN_S, TRAIN_STEPS, TRAIN_CKPT, TRAIN_FAIL_AT = 8, 1024, 40, 10, 25
+#: replayed steps (20-24, from the step-20 checkpoint) against the first
+#: run's losses.  The restored state is the saved one bit for bit, and
+#: on an H100 the five replayed losses came out bit-equal too (the
+#: embedding's accumulating index_put, the one backward that could add
+#: in another order, sorts its indices first); 1e-3 leaves room for an
+#: order change without hiding a wrong restore (a step's loss moves by
+#: ~0.01-0.1 here)
+TRAIN_REPLAY_ATOL = 1e-3
+#: train step card == cpu (f32 weights, B=2, S=128): loss and grad_norm
+#: relative tolerances; a parameter may differ by up to 2 lr where its
+#: gradient is roundoff and AdamW's first, sign-like update takes the
+#: other sign, at most TRAIN_PARAM_OUTLIERS of the entries beyond
+#: TRAIN_PARAM_CLOSE
+TRAIN_LOSS_RTOL, TRAIN_NORM_RTOL = 1e-5, 1e-4
+TRAIN_PARAM_CLOSE, TRAIN_PARAM_OUTLIERS = 1e-6, 1e-4
+
+
+def train_flops(cfg, n_params: int, tokens: int, seq: int) -> float:
+    """Model FLOPs of one train step: 6 N per token (forward and
+    backward of every weight product; the tied embedding counts once, as
+    the unembedding) plus attention's score and value products, 12 L S H
+    hd per token over the full S x S square (the port's flash attention
+    computes the masked half too).  Remat's recompute is not counted."""
+    return (6.0 * n_params * tokens
+            + 12.0 * cfg.n_layers * seq * cfg.n_heads * cfg.head_dim
+            * tokens)
+
+
+def train_smollm(cfg, dev, card: str) -> dict:
+    """smollm-135m at full width and depth through ``run_training`` and
+    ``build_train_step``, the CLI's path: bf16 parameters, f32 moments,
+    remat "full", B=8, S=1024, the synthetic pipeline at seed 0,
+    ``AdamWConfig(lr=3e-3, warmup_steps=10, total_steps=40)``, a
+    checkpoint every 10 steps, and one simulated node failure at step 25
+    (restored from step 20: 45 steps run).  Then a profiler window of two
+    more steps."""
+    import tempfile
+
+    import torch
+
+    from repro_torch.data.pipeline import SyntheticLMPipeline
+    from repro_torch.launch.steps import build_train_step, init_train_state
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.runtime.train_loop import (
+        TrainLoopConfig,
+        device_batch,
+        run_training,
+    )
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    opt = AdamWConfig(lr=3e-3, warmup_steps=10, total_steps=TRAIN_STEPS)
+    step_fn = build_train_step(cfg, opt, remat="full")
+    pipe = SyntheticLMPipeline(cfg.vocab_size, TRAIN_S, TRAIN_B, seed=0)
+    times: list[float] = []
+    last = {}
+
+    def timed(state, batch):
+        t0 = time.perf_counter()
+        new, metrics = step_fn(state, batch)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        last["state"] = new
+        return new, metrics
+
+    def init():
+        return init_train_state(cfg, torch.Generator(device=dev)
+                                .manual_seed(0), dev)
+
+    failed = []
+
+    def injector(step):
+        if step == TRAIN_FAIL_AT and not failed:
+            failed.append(step)
+            raise RuntimeError("simulated node failure")
+
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="train_ckpt_") as ckpt:
+        rep = run_training(
+            timed, init, pipe, ckpt,
+            TrainLoopConfig(total_steps=TRAIN_STEPS,
+                            ckpt_interval=TRAIN_CKPT),
+            fail_injector=injector,
+            to_batch=lambda b: device_batch(b, dev))
+    wall = time.perf_counter() - t0
+    losses = np.asarray(rep.losses)
+    n_params = sum(x.numel()
+                   for _, _, x in param_leaves(last["state"]["params"]))
+    tokens = TRAIN_B * TRAIN_S
+    ms = float(np.median(times[3:])) * 1e3
+    flops = train_flops(cfg, n_params, tokens, TRAIN_S)
+    share = flops / (ms / 1e3) / BF16_TC_FLOPS
+    first = losses[TRAIN_CKPT * 2:TRAIN_FAIL_AT]
+    replay = losses[TRAIN_FAIL_AT:TRAIN_FAIL_AT + len(first)]
+    replay_err = float(np.abs(first - replay).max())
+    peak = mem_gb()
+    print(f"train smollm-135m (full width and depth: {cfg.n_layers} "
+          f"layers, d_model {cfg.d_model}, vocab {cfg.vocab_size}, "
+          f"{cfg.dtype} parameters, f32 moments, remat full; B={TRAIN_B} "
+          f"S={TRAIN_S}; {TRAIN_STEPS} steps, checkpoint every "
+          f"{TRAIN_CKPT}, a node failure at step {TRAIN_FAIL_AT}): "
+          f"{n_params} parameters; steps_run={rep.steps_run} "
+          f"restarts={rep.restarts} resumed_from={rep.resumed_from} "
+          f"skipped_nonfinite={rep.skipped_nonfinite} in {wall:.1f} s wall; "
+          f"loss {losses[0]:.4f} -> {losses[-1]:.4f} (mean of the last "
+          f"five {losses[-5:].mean():.4f})")
+    print(f"train smollm-135m replayed steps 20-24: first run "
+          f"{np.array2string(first, precision=5)}, replay "
+          f"{np.array2string(replay, precision=5)}, max |diff| "
+          f"{replay_err:.3g} (gate {TRAIN_REPLAY_ATOL}; step 20 equal: "
+          f"{bool(first[0] == replay[0])})")
+    print(f"train smollm-135m on {card}: {ms:.2f} ms per step (median of "
+          f"{len(times) - 3} after 3 warm-up steps; min "
+          f"{min(times) * 1e3:.2f}, max {max(times) * 1e3:.2f}), "
+          f"{tokens / (ms / 1e3):.0f} tokens/s, peak device memory "
+          f"{peak:.2f} GB, model FLOPs per step {flops / 1e12:.3f} T "
+          f"(6 N tokens + attention), {100 * share:.2f}% of the bf16 dense "
+          f"peak (989 TFLOP/s)")
+    print(f"train smollm-135m loss curve: "
+          f"{np.array2string(losses[::5], precision=3)}")
+    if not np.isfinite(losses).all() or rep.restarts != 1 or \
+            rep.steps_run != TRAIN_STEPS + TRAIN_FAIL_AT - 2 * TRAIN_CKPT \
+            or not losses[-5:].mean() < losses[0] \
+            or replay_err > TRAIN_REPLAY_ATOL:
+        raise AssertionError(
+            f"train smollm-135m: steps_run {rep.steps_run}, restarts "
+            f"{rep.restarts}, first loss {losses[0]}, last five "
+            f"{losses[-5:]}, replay error {replay_err}")
+    state = last.pop("state")
+    batches = [device_batch(pipe.next_batch(), dev) for _ in range(4)]
+    holder = {"state": state}
+
+    def one():
+        holder["state"], _ = step_fn(holder["state"], batches.pop())
+
+    one()
+    one()                              # warm, outside the window
+    prof = profile_window(one, "train smollm-135m, 2 steps", 2)
+    return {"params": n_params, "steps_run": rep.steps_run,
+            "restarts": rep.restarts, "first_loss": float(losses[0]),
+            "last5_mean_loss": float(losses[-5:].mean()),
+            "replay_max_abs_diff": replay_err, "ms_per_step": ms,
+            "tokens_per_s": tokens / (ms / 1e3), "peak_gb": peak,
+            "model_tflop_per_step": flops / 1e12,
+            "bf16_peak_share": share, "profile_2_steps": prof,
+            "card": card}
+
+
+def train_step_card_vs_cpu(cfg, dev) -> dict:
+    """One ``build_train_step`` step of smollm-135m at full width, the
+    weights widened to f32, B=2, S=128, on the card and with the port on
+    the CPU from the same parameters and batch.  No CUDA kernel of the
+    port runs here (smollm has no Mamba sublayer)."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.data.pipeline import SyntheticLMPipeline
+    from repro_torch.launch.steps import build_train_step, init_train_state
+    from repro_torch.optim.adamw import AdamWConfig, init_opt_state
+    from repro_torch.pytree import flatten, tree_map
+    from repro_torch.runtime.train_loop import device_batch
+
+    cfg = dataclasses.replace(cfg, dtype="float32")
+    card_state = init_train_state(cfg, torch.Generator(device=dev)
+                                  .manual_seed(1), dev)
+    cpu_params = tree_map(lambda x: x.cpu(), card_state["params"])
+    cpu_state = {"params": cpu_params, "opt": init_opt_state(cpu_params)}
+    batch = SyntheticLMPipeline(cfg.vocab_size, 128, 2, seed=1).next_batch()
+    opt = AdamWConfig(lr=3e-3, warmup_steps=10, total_steps=TRAIN_STEPS)
+    step = build_train_step(cfg, opt, remat="full")
+    t0 = time.perf_counter()
+    new_card, m_card = step(card_state, device_batch(batch, dev))
+    torch.cuda.synchronize()
+    card_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    new_cpu, m_cpu = step(cpu_state, device_batch(batch, "cpu"))
+    cpu_s = time.perf_counter() - t0
+    loss_err = abs(m_card["loss"].item() / m_cpu["loss"].item() - 1)
+    norm_err = abs(m_card["grad_norm"].item()
+                   / m_cpu["grad_norm"].item() - 1)
+    lr = m_cpu["lr"].item()
+    worst, outliers, total = 0.0, 0, 0
+    for got, want in zip(flatten(new_card["params"]),
+                         flatten(new_cpu["params"])):
+        err = (got.cpu() - want).abs()
+        worst = max(worst, err.max().item())
+        outliers += int((err > TRAIN_PARAM_CLOSE).sum())
+        total += err.numel()
+    print(f"train step card == cpu (smollm-135m at full width, f32 "
+          f"weights, B=2 S=128; no kernel of the port on this path): loss "
+          f"{m_card['loss'].item():.6f} vs {m_cpu['loss'].item():.6f} "
+          f"(rel {loss_err:.3g}, gate {TRAIN_LOSS_RTOL}), grad_norm "
+          f"{m_card['grad_norm'].item():.6f} vs "
+          f"{m_cpu['grad_norm'].item():.6f} (rel {norm_err:.3g}, gate "
+          f"{TRAIN_NORM_RTOL}); parameters: max |diff| {worst:.3g} (gate "
+          f"2 lr = {2 * lr:.3g}), {outliers} of {total} entries beyond "
+          f"{TRAIN_PARAM_CLOSE} (gate {TRAIN_PARAM_OUTLIERS} of them); "
+          f"card {card_s:.2f} s, cpu {cpu_s:.2f} s wall")
+    if loss_err > TRAIN_LOSS_RTOL or norm_err > TRAIN_NORM_RTOL or \
+            worst > 2 * lr or outliers > TRAIN_PARAM_OUTLIERS * total:
+        raise AssertionError("train step card != cpu")
+    return {"loss_rel_err": loss_err, "grad_norm_rel_err": norm_err,
+            "param_max_abs_diff": worst, "param_outliers": outliers,
+            "params": total}
+
+
+def train_jamba_grad(dev) -> tuple[dict, int]:
+    """Reduced jamba (``moe=None``, ``n_layers=8``: 7 Mamba sublayers and
+    one attention sublayer, d_model 128) in f32: one ``Model.loss`` and
+    ``autograd.grad`` over every leaf on the card, whose forward runs the
+    ``ssd_scan`` kernel, against the same on the CPU (``ssd_scan_plain``).
+    Returns the figures and the kernel launches of the card's loss and
+    gradient (the backward's remat recomputes the forward)."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs import JAMBA_1_5_LARGE
+    from repro_torch.kernels import linear_scan as ls
+    from repro_torch.models import mamba
+    from repro_torch.models.model import Model
+    from repro_torch.pytree import flatten, leaf_paths, tree_map
+
+    cfg = dataclasses.replace(JAMBA_1_5_LARGE.reduced(moe=None, n_layers=8),
+                              dtype="float32")
+    params = Model(cfg).init(torch.Generator(device=dev).manual_seed(2),
+                             device=dev)
+    rng = np.random.default_rng(5)
+    toks = rng.integers(0, cfg.vocab_size, (2, 257))
+    batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+    paths = leaf_paths(params)
+
+    def loss_and_grads(where, scan=None):
+        """(loss, gradients on the host, launches in the forward, in
+        all); ``scan`` replaces the Mamba layer's ``ssd_scan``."""
+        p = tree_map(lambda x: x.to(where).requires_grad_(True), params)
+        b = {k: torch.from_numpy(v).to(where) for k, v in batch.items()}
+        kernel_scan = mamba.ssd_scan
+        mamba.ssd_scan = scan or kernel_scan
+        try:
+            ls.launches = 0
+            loss = Model(cfg).loss(p, b)
+            fwd = ls.launches
+            grads = torch.autograd.grad(loss, flatten(p))
+            torch.cuda.synchronize()
+        finally:
+            mamba.ssd_scan = kernel_scan
+        return loss.item(), [g.cpu() for g in grads], fwd, ls.launches
+
+    def compare(got, want):
+        """(relative loss error, worst Mamba leaf and its error relative
+        to its largest entry, worst error of any leaf, zero Mamba
+        gradients)."""
+        worst_mamba, worst_all, zero = ("", 0.0), 0.0, []
+        for path, a, b in zip(paths, got[1], want[1]):
+            rel = (a - b).abs().max().item() / max(b.abs().max().item(),
+                                                   1e-30)
+            worst_all = max(worst_all, rel)
+            if "/mamba/" in path:
+                worst_mamba = max(worst_mamba, (path, rel),
+                                  key=lambda x: x[1])
+                if a.abs().max().item() == 0:
+                    zero.append(path)
+        return abs(got[0] / want[0] - 1), worst_mamba, worst_all, zero
+
+    card = loss_and_grads(dev)
+    cpu = loss_and_grads(torch.device("cpu"))
+    # the card with the plain scan: what the two devices' other sums
+    # account for, beside the kernel's forward
+    card_plain = loss_and_grads(dev, ls.ssd_scan_plain)
+    fwd, total = card[2:]
+    loss_err, (leaf, worst_mamba), worst_all, zero = compare(card, cpu)
+    _, (_, plain_mamba), plain_all, _ = compare(card_plain, cpu)
+    _, (_, kernel_mamba), _, _ = compare(card, card_plain)
+    print(f"train jamba (ssd_scan gradient; {cfg.name} reduced, moe=None, "
+          f"n_layers=8, f32, B=2 T=256): ssd_scan launches {fwd} in the "
+          f"card's forward, {total} with the backward's recompute; loss "
+          f"{card[0]:.6f} vs cpu {cpu[0]:.6f} (rel {loss_err:.3g}, gate "
+          f"{TRAIN_LOSS_RTOL}); Mamba leaves' gradients within "
+          f"{worst_mamba:.3g} of their largest entry (worst {leaf}; gate "
+          f"{SCAN_F32_TOL['rtol']}), every leaf within {worst_all:.3g}; "
+          f"zero Mamba gradients: {zero or 'none'}; the card with the "
+          f"plain scan against the cpu: Mamba {plain_mamba:.3g}, every "
+          f"leaf {plain_all:.3g}; kernel against plain scan on the card: "
+          f"Mamba {kernel_mamba:.3g}")
+    if fwd <= 0 or card_plain[2] != 0 or zero or \
+            loss_err > TRAIN_LOSS_RTOL or \
+            worst_mamba > SCAN_F32_TOL["rtol"]:
+        raise AssertionError("train jamba: the ssd_scan gradient")
+    return ({"ssd_scan_launches_forward": fwd,
+             "ssd_scan_launches_loss_and_grad": total,
+             "loss_rel_err": loss_err, "mamba_grad_rel_err": worst_mamba,
+             "grad_rel_err": worst_all,
+             "plain_scan_on_card_mamba_grad_rel_err": plain_mamba,
+             "kernel_vs_plain_on_card_mamba_grad_rel_err": kernel_mamba},
+            total)
+
+
+def run_train(dev, card: str) -> tuple[dict, int]:
+    """The training phases; returns the ``train`` figures and the
+    ``ssd_scan`` launches of the jamba gradient."""
+    from repro_torch.configs import SMOLLM_135M
+
+    figures = {"smollm_135m": train_smollm(SMOLLM_135M, dev, card),
+               "card_vs_cpu": train_step_card_vs_cpu(SMOLLM_135M, dev)}
+    figures["jamba_ssd_scan_grad"], launches = train_jamba_grad(dev)
+    return figures, launches
+
+
 def main() -> int:
     import torch
 
@@ -2754,10 +3099,15 @@ def main() -> int:
         served[fcfg.name.replace("-", "_")] = fn(fcfg, dev)
         phases[fcfg.name] = time.perf_counter() - t0
         torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    train, train_launches = run_train(dev, card)
+    phases["train"] = time.perf_counter() - t0
+    by_name["ssd_scan"]["launches"] += train_launches
     print("phases (wall s): " + ", ".join(f"{k} {v:.1f}"
                                           for k, v in phases.items()))
     print(json.dumps({"serve": served}))
     print(json.dumps({"checkpoint": ckpt}))
+    print(json.dumps({"train": train}))
     print(json.dumps({"kernels": kernels}))
     print(f"card: {card}")
     print(json.dumps({"ok": True, "device": {

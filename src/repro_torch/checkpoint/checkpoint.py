@@ -9,13 +9,13 @@ so a checkpoint written by either package restores in the other:
         manifest.json                 # paths, shapes, dtypes, extra
         arr_00000.npy ...             # one file per leaf (host numpy)
 
-Leaves are numbered in ``jax.tree_util`` order, which :func:`_flatten`
-reproduces over dicts (sorted keys), lists and tuples (in order) and
-``None`` (no leaves).  A bf16 leaf is stored as its ``uint16`` bits with
-``"dtype": "bfloat16"`` in the manifest, as the reference stores it, and
-comes back as a bf16 tensor through that view (no ``ml_dtypes``).  The
-reference's serialized ``treedef`` is written as ``null``: nothing reads
-it.  Restores place every leaf on ``device`` (``"cuda"`` unless given);
+Leaves are numbered in ``jax.tree_util`` order (``repro_torch.pytree``:
+dicts by sorted key, lists and tuples in order, ``None`` no leaves).  A
+bf16 leaf is stored as its ``uint16`` bits with ``"dtype": "bfloat16"``
+in the manifest, as the reference stores it, and comes back as a bf16
+tensor through that view (no ``ml_dtypes``).  The reference's
+serialized ``treedef`` is written as ``null``: nothing reads it.
+Restores place every leaf on ``device`` (``"cuda"`` unless given);
 the reference's ``shardings`` placement waits for the launch tooling.
 
 ``save_async`` snapshots every leaf to host memory synchronously and
@@ -48,42 +48,10 @@ import torch
 
 from ..core.iris import DEFAULT_CACHE
 from ..device import resolve_device
-
-
-def _flatten(tree: Any) -> list:
-    """Leaves in ``jax.tree_util`` order: dict keys sorted, lists and
-    tuples in order, ``None`` a node without leaves."""
-    if tree is None:
-        return []
-    if isinstance(tree, dict):
-        return [leaf for k in sorted(tree) for leaf in _flatten(tree[k])]
-    if isinstance(tree, (list, tuple)):
-        return [leaf for v in tree for leaf in _flatten(v)]
-    return [tree]
-
-
-def _tree_paths(tree: Any, prefix: tuple = ()) -> list[str]:
-    """``/``-joined key path of each leaf, in :func:`_flatten` order."""
-    if tree is None:
-        return []
-    if isinstance(tree, dict):
-        return [p for k in sorted(tree)
-                for p in _tree_paths(tree[k], prefix + (str(k),))]
-    if isinstance(tree, (list, tuple)):
-        return [p for i, v in enumerate(tree)
-                for p in _tree_paths(v, prefix + (str(i),))]
-    return ["/".join(prefix)]
-
-
-def _map(fn, tree: Any) -> Any:
-    """``fn`` over every leaf, keeping the structure."""
-    if tree is None:
-        return None
-    if isinstance(tree, dict):
-        return {k: _map(fn, v) for k, v in tree.items()}
-    if isinstance(tree, (list, tuple)):
-        return type(tree)(_map(fn, v) for v in tree)
-    return fn(tree)
+from ..pytree import flatten as _flatten
+from ..pytree import leaf_paths as _tree_paths
+from ..pytree import tree_map as _map
+from ..pytree import unflatten as _unflatten
 
 
 def _skeletonize(tree: Any) -> tuple[Any, list]:
@@ -117,22 +85,6 @@ def _unskeletonize(skeleton: Any, leaves: list) -> Any:
     return skeleton
 
 
-def _unflatten(like: Any, leaves: list) -> Any:
-    """``leaves`` (in :func:`_flatten` order) in the structure of ``like``."""
-    it = iter(leaves)
-
-    def build(node):
-        if node is None:
-            return None
-        if isinstance(node, dict):
-            out = {k: build(node[k]) for k in sorted(node)}
-            return {k: out[k] for k in node}
-        if isinstance(node, (list, tuple)):
-            return type(node)(build(v) for v in node)
-        return next(it)
-    return build(like)
-
-
 def _snapshot(x: Any) -> Any:
     """A leaf copied to host memory now (the caller may mutate it later)."""
     if isinstance(x, torch.Tensor):
@@ -162,7 +114,8 @@ def _loaded(arr: np.ndarray, dtype: str) -> torch.Tensor:
     want = np.dtype(dtype)
     if arr.dtype != want:
         arr = arr.view(want)
-    return torch.from_numpy(np.ascontiguousarray(arr))
+    # np.array keeps a 0-d leaf 0-d (ascontiguousarray makes it (1,))
+    return torch.from_numpy(np.array(arr, order="C"))
 
 
 class CheckpointManager:

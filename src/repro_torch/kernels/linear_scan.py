@@ -23,6 +23,17 @@ copy.  With ``state0=None`` and T a multiple of ``chunk`` the output is
 the reference ``ssd_scan``'s.  The function does not depend on
 ``chunk``: the plain version takes it as given, and the kernel walks T in
 its own tile (:func:`scan_launch`), so any ``chunk`` >= 1 is taken.
+
+Gradients.  The kernel writes a fresh tensor, outside autograd.  So when
+grad is enabled and any of q, k, v, logw or state0 requires grad,
+:func:`ssd_scan` is the ``apply`` of :class:`_SSDScan`: its forward is
+the same launch (or the plain version on the CPU), and its backward
+recomputes :func:`ssd_scan_plain` on the saved inputs under autograd and
+returns its gradients for ``out`` and, with ``return_state``, the final
+state.  The plain version masks before its ``exp``, so its gradient has
+no NaN.  There is no CUDA backward kernel (the reference has no Pallas
+backward either); a backward through the card's forward costs one plain
+recompute.
 """
 from __future__ import annotations
 
@@ -129,6 +140,34 @@ def _check(q, k, v, logw, chunk, state0):
         raise ValueError(f"operands on different devices: {devs}")
 
 
+class _SSDScan(torch.autograd.Function):
+    """``ssd_scan`` with a gradient: the forward of :func:`_scan`, the
+    backward through a recompute of :func:`ssd_scan_plain`."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, logw, state0, chunk, return_state):
+        ctx.chunk, ctx.return_state = chunk, return_state
+        ctx.save_for_backward(q, k, v, logw, state0)
+        return _scan(q, k, v, logw, chunk, state0, return_state)
+
+    @staticmethod
+    def backward(ctx, *grad_outputs):
+        saved = ctx.saved_tensors
+        need = ctx.needs_input_grad[:5]
+        with torch.enable_grad():
+            inputs = [None if t is None else t.detach().requires_grad_(n)
+                      for t, n in zip(saved, need)]
+            outs = ssd_scan_plain(*inputs[:4], chunk=ctx.chunk,
+                                  state0=inputs[4],
+                                  return_state=ctx.return_state)
+            outs = outs if ctx.return_state else (outs,)
+            wrt = [t for t, n in zip(inputs, need) if n]
+            grads = iter(torch.autograd.grad(outs, wrt, grad_outputs,
+                                             allow_unused=True))
+        return tuple(next(grads) if n else None for n in need) \
+            + (None, None)
+
+
 def ssd_scan(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
              logw: torch.Tensor, *, chunk: int = 128,
              state0: torch.Tensor | None = None,
@@ -136,9 +175,19 @@ def ssd_scan(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """q/k: (B, T, H, dk), v: (B, T, H, dv) (float32 or bfloat16, one
     dtype), logw: (B, T, H) float32 (<= 0), state0: (B, H, dk, dv)
     float32 or None (zeros).  Returns out (B, T, H, dv) in q's dtype, and
-    with ``return_state`` also the final state (B, H, dk, dv) float32."""
-    global launches
+    with ``return_state`` also the final state (B, H, dk, dv) float32.
+    Differentiable (see the module's docstring)."""
     _check(q, k, v, logw, chunk, state0)
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad
+            for t in (q, k, v, logw, state0)):
+        return _SSDScan.apply(q, k, v, logw, state0, chunk, return_state)
+    return _scan(q, k, v, logw, chunk, state0, return_state)
+
+
+def _scan(q, k, v, logw, chunk, state0, return_state):
+    """The launch (CUDA) or the plain version (CPU), outside autograd."""
+    global launches
     if q.device.type == "cpu":
         return ssd_scan_plain(q, k, v, logw, chunk=chunk, state0=state0,
                               return_state=return_state)

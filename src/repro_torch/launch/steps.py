@@ -1,19 +1,59 @@
-"""Step functions the serve launcher and ``chip_smoke.py`` drive.
+"""Step functions the launchers and ``chip_smoke.py`` drive.
 
-Port of ``src/repro/launch/steps.py:38-57``:
+Port of ``src/repro/launch/steps.py``:
 
+* ``train_step(state, batch)`` — loss, grads, AdamW update
 * ``prefill_step(params, batch)`` — forward logits + prefill KV caches
 * ``serve_step(params, state, tokens, cross_kv=None)`` — one decode
   token (``cross_kv``: an encoder-decoder's cross K/V)
+* ``init_train_state(cfg, generator, device)`` — seeded params + zero
+  AdamW state
 
-Built per config.  PyTorch runs eagerly, so there is nothing to jit;
-``build_train_step`` comes with training (ROADMAP A14).
+Built per config.  PyTorch runs eagerly, so there is nothing to jit, and
+it has no buffer donation: the train step makes a new state and leaves
+the one it was given as it was, so the train loop can keep the old state
+when a loss is not finite.
 """
 from __future__ import annotations
 
 from typing import Callable
 
+import torch
+
 from ..models.model import Model
+from ..optim.adamw import AdamWConfig, adamw_update, init_opt_state
+from ..pytree import flatten, unflatten
+
+
+def build_train_step(cfg, opt_cfg: AdamWConfig | None = None,
+                     remat: str = "full",
+                     transform_grads: Callable | None = None) -> Callable:
+    """``train_step(state, batch) -> ({"params", "opt"}, metrics)``, with
+    ``metrics`` the f32 0-d tensors ``loss``, ``grad_norm`` and ``lr``.
+    The gradient of every leaf (zeros where the loss does not reach
+    one, as ``jax.value_and_grad`` gives) goes to
+    :func:`~repro_torch.optim.adamw.adamw_update`, after
+    ``transform_grads`` (e.g. a ``GradCompressor`` round trip) if
+    given."""
+    opt_cfg = opt_cfg or AdamWConfig()
+    model = Model(cfg, remat=remat)
+
+    def train_step(state: dict, batch: dict) -> tuple[dict, dict]:
+        params = state["params"]
+        leaves = [p.detach().requires_grad_(True) for p in flatten(params)]
+        with torch.enable_grad():
+            loss = model.loss(unflatten(params, leaves), batch)
+            grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+        grads = [torch.zeros_like(p) if g is None else g
+                 for p, g in zip(leaves, grads)]
+        with torch.no_grad():
+            new_params, new_opt, metrics = adamw_update(
+                opt_cfg, unflatten(params, grads), state["opt"], params,
+                transform_grads=transform_grads)
+        return ({"params": new_params, "opt": new_opt},
+                {"loss": loss.detach(), **metrics})
+
+    return train_step
 
 
 def build_prefill_step(cfg) -> Callable:
@@ -34,3 +74,11 @@ def build_serve_step(cfg) -> Callable:
         return model.decode_step(params, state, tokens, cross_kv)
 
     return serve_step
+
+
+def init_train_state(cfg, generator: torch.Generator | None = None,
+                     device=None, moment_dtype: str = "float32") -> dict:
+    """Seeded parameters (``Model.init`` from ``generator`` on ``device``,
+    ``"cuda"`` unless given) and their zero AdamW state."""
+    params = Model(cfg).init(generator, device=device)
+    return {"params": params, "opt": init_opt_state(params, moment_dtype)}

@@ -2,15 +2,21 @@
 
 Port of ``src/repro/models/model.py``: :class:`Model` with ``init``,
 ``_embed`` (``:74-79``), ``_logits`` (``:81-93``), ``encode``
-(``:95-107``), ``forward`` (``:110-125``), ``init_decode_state``
-(``:150-185``), ``precompute_cross_kv`` (``:187-192``) and
-``decode_step`` (``:194-264``).  A thin class over plain functions on
-tensors, as the reference's is; parameters are the dict tree of
-:func:`~repro_torch.models.params.init_params`.
+(``:95-107``), ``forward`` (``:110-125``), ``loss`` (``:127-147``),
+``init_decode_state`` (``:150-185``), ``precompute_cross_kv``
+(``:187-192``) and ``decode_step`` (``:194-264``).  A thin class over
+plain functions on tensors, as the reference's is; parameters are the
+dict tree of :func:`~repro_torch.models.params.init_params`.  ``remat``
+(``"full"`` | ``"dots"`` | ``"none"``) is the rematerialization policy
+``encode`` and ``forward`` hand to ``transformer.forward_stack``; it
+acts only where a backward runs.
 
 Differences from the reference:
 
-* ``loss`` comes with training (ROADMAP A14).
+* ``loss`` takes the label logit with a ``gather``; the reference
+  contracts the logits with a one-hot (a vocab-sharding idiom).  For
+  finite logits the value is the same bit for bit (one product by 1,
+  the rest by 0), and no second (B, S, V) f32 tensor is made.
 * ``decode_step`` updates the state's caches **in place** and returns the
   same state dict with a new ``pos``; the reference returns new arrays.
 * Whisper's decode positions come from one sinusoidal table of
@@ -42,6 +48,7 @@ from .transformer import (
 @dataclasses.dataclass(frozen=True)
 class Model:
     cfg: object
+    remat: str = "full"
     #: whisper's decode position table by device (built on first use)
     _tables: dict = dataclasses.field(default_factory=dict, init=False,
                                       repr=False, compare=False)
@@ -73,7 +80,7 @@ class Model:
         positions = torch.arange(s, device=x.device)[None].expand(b, s)
         x, _, _ = forward_stack(encoder_config(cfg),
                                 params["encoder"]["blocks"], x, positions,
-                                causal=False)
+                                causal=False, remat=self.remat)
         return apply_norm(cfg, params["encoder"]["final_norm"], x)
 
     def forward(self, params: dict, batch: dict, *,
@@ -97,8 +104,29 @@ class Model:
                     .to(x.dtype)[None]
         x, aux, caches = forward_stack(cfg, params["blocks"], x, positions,
                                        cross_memory=cross_memory,
-                                       collect_cache=collect_cache)
+                                       collect_cache=collect_cache,
+                                       remat=self.remat)
         return self._logits(params, x), aux, caches
+
+    def loss(self, params: dict, batch: dict) -> torch.Tensor:
+        """Mean next-token cross-entropy over f32 logits plus 0.01 x the
+        MoE aux loss: an f32 scalar.  ``batch["labels"]`` (B, S) int;
+        with ``batch["loss_mask"]`` (B, S) the CE is masked and divided
+        by the mask's sum (at least 1), else by B * S."""
+        logits, aux, _ = self.forward(params, batch)
+        logits = logits.to(torch.float32)
+        labels = batch["labels"].to(device=logits.device, dtype=torch.int64)
+        lse = torch.logsumexp(logits, dim=-1)
+        label_logit = torch.gather(logits, -1, labels[..., None])[..., 0]
+        ce = lse - label_logit
+        mask = batch.get("loss_mask")
+        if mask is not None:
+            mask = mask.to(device=ce.device, dtype=ce.dtype)
+            ce = ce * mask
+            denom = torch.clamp(mask.sum(), min=1.0)
+        else:
+            denom = ce.numel()
+        return ce.sum() / denom + 0.01 * aux
 
     def init_decode_state(self, batch_size: int, max_seq: int, *,
                           device=None) -> dict:

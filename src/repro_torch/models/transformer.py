@@ -14,15 +14,31 @@ smallest repeating sublayer template:
   over the encoder's memory; the encoder is a dense stack of its own.
 
 Every parameter leaf is stacked over periods, as in the reference;
-where the reference scans over periods, this is a Python loop.  There is
-no remat (a training concern, ROADMAP A14).
+where the reference scans over periods, this is a Python loop.
+
+Remat (``forward_stack(..., remat=)``, ``:185-192``) wraps each period
+when a backward will run through it (grad enabled and an input that
+requires grad): ``"full"`` keeps only the period's input and recomputes
+the rest in the backward (``torch.utils.checkpoint``, non-reentrant);
+``"dots"``, the reference's ``dots_with_no_batch_dims_saveable``, saves
+the outputs of the weight products (``aten.mm`` / ``aten.addmm``) and
+recomputes everything else, batched products (``bmm``, attention's
+einsums) included; ``"none"`` saves everything.  Without a backward
+(serving, prefill) nothing is wrapped, so those paths run as before.
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
 
 import torch
+from torch.utils.checkpoint import (
+    CheckpointPolicy,
+    checkpoint,
+    create_selective_checkpoint_contexts,
+)
 
+from ..pytree import flatten
 from . import attention as attn
 from . import mamba as mam
 from . import moe as moe_mod
@@ -141,29 +157,68 @@ def _sublayer_forward(cfg, spec: SubLayerSpec, p: dict, x: torch.Tensor,
     return x, aux, cache
 
 
+REMAT_POLICIES = ("full", "dots", "none")
+
+#: the weight products "dots" saves: 2-D matmuls (a (B, S, d) activation
+#: times a weight folds to one); batched products are recomputed
+_SAVED_OPS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    return (CheckpointPolicy.MUST_SAVE if op in _SAVED_OPS
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def _needs_grad(x: torch.Tensor, blocks, cross_memory) -> bool:
+    if not torch.is_grad_enabled():
+        return False
+    tensors = [x] + flatten(blocks)
+    if cross_memory is not None:
+        tensors.append(cross_memory)
+    return any(t.requires_grad for t in tensors)
+
+
 def forward_stack(cfg, blocks: list[dict], x: torch.Tensor,
                   positions: torch.Tensor, *,
                   cross_memory: torch.Tensor | None = None,
-                  causal: bool = True, collect_cache: bool = False):
+                  causal: bool = True, collect_cache: bool = False,
+                  remat: str = "full"):
     """Run the period stack.  Returns (x, total aux loss, caches or
     None): per attention sublayer, (k, v) stacked over periods
     (n_periods, B, S, Hkv, hd).  ``cross_memory`` (B, ctx, d) is the
     encoder's output that the decoder's cross-attention reads;
-    ``causal=False`` is the encoder's self-attention."""
+    ``causal=False`` is the encoder's self-attention; ``remat`` one of
+    :data:`REMAT_POLICIES` (see the module's docstring)."""
+    if remat not in REMAT_POLICIES:
+        raise ValueError(f"unknown remat policy {remat!r}")
     template = period_template(cfg)
     inv_freq = rope_freqs(cfg, x.device)
-    total = torch.zeros((), dtype=torch.float32, device=x.device)
-    per_period = []
-    for i in range(n_periods(cfg)):
+
+    def period(i, x):
+        aux_sum = torch.zeros((), dtype=torch.float32, device=x.device)
         caches = []
         for si, spec in enumerate(template):
             x, aux, cache = _sublayer_forward(
                 cfg, spec, period_params(blocks[si], i), x, positions,
                 inv_freq, cross_memory=cross_memory, causal=causal,
                 collect_cache=collect_cache and spec.mixer == "attn")
-            total = total + aux
+            aux_sum = aux_sum + aux
             if cache is not None:
                 caches.append(cache)
+        return x, aux_sum, caches
+
+    if remat != "none" and _needs_grad(x, blocks, cross_memory):
+        kw = {} if remat == "full" else {"context_fn": functools.partial(
+            create_selective_checkpoint_contexts, _dots_policy)}
+        run = functools.partial(checkpoint, period, use_reentrant=False,
+                                **kw)
+    else:
+        run = period
+    total = torch.zeros((), dtype=torch.float32, device=x.device)
+    per_period = []
+    for i in range(n_periods(cfg)):
+        x, aux, caches = run(i, x)
+        total = total + aux
         per_period.append(caches)
     if not collect_cache:
         return x, total, None
