@@ -176,18 +176,41 @@
     card (the forward through the ``ssd_scan`` kernel, its launches
     counted; the backward through the scan's autograd Function) against
     the CPU's, and against the card with the plain scan.
-16. Prints each phase's wall seconds, one JSON ``serve`` line (ms per
+16. The planner (:func:`planner_phase`, after the smollm phases), at
+    smollm-135m's full width: ``schedule_many`` of its layer bundles at
+    bits 2-8, group 32, each over 30 layers, with a pool of 4 after CUDA
+    is initialised (its fallback warning an error), serially and cold:
+    the same count runs, equal stats, wall seconds of each; warm starts
+    chained off the int5 problem (one array re-specified, inserted,
+    deleted), each == a cold run, 3 counted; a ``LayoutCache`` disk round
+    trip (1 disk hit) and a tampered entry (1 disk reject, a correct
+    re-plan); the layout explorer's four tables; then at int5, int6 and
+    int7 one layer bundle through the stream-direct path: ``pack_bundle``
+    on the host, ``pack_layout_fused`` of its padded pieces on the card
+    == that buffer, ``decode_layout_fused`` == the data, ``stream_words``
+    on the card, ``LayerStackPlan.matmul_direct`` of the 7 matrices at
+    M=4 within 1e-5 / 1e-4 of the plain version and bit-equal to
+    ``Plan.matmul_direct`` of the uint8 rows (1 + 1 + 14 launches a
+    width, counted), each layer's 7 matmuls timed as the B1 lines are.
+    In the checkpoint phase, after the int3 serve, ``page_rows_u8`` of
+    one KV page == its slice of ``host_pages()`` and ``stream_bytes()``
+    == the pages' bytes (``planner kv`` line).
+17. Prints each phase's wall seconds, one JSON ``serve`` line (ms per
     step of the packed serves of stablelm-3b and qwen2-vl-2b, and of the
     unquantized serves of moonshot, rwkv6-3b and whisper-medium), one
     JSON ``checkpoint`` line (the checkpoint phase's figures), one JSON
-    ``train`` line (the training phases' figures) and one
+    ``planner`` line (the planner phase's wall seconds and counts), one
+    JSON ``train`` line (the training phases' figures) and one
     JSON ``kernels`` line (seven kernels, each with its ``device_ms``;
     the matmuls and ``stream_attention`` also with
     ``library_device_ms``; B1-B4 with a ``stablelm`` and a ``qwen2_vl``
-    entry holding that path's row and launches; ``stream_attention``
-    with its smax-2048 and rep-12 points, ``ssd_scan`` with its dk=128
-    point; ``pack_layout_fused``'s launches include stablelm's 64 and
-    qwen2-vl's 56, ``ssd_scan``'s the training phase's), the card line
+    entry holding that path's row and launches; B1 with a
+    ``stream_direct`` entry, its row and launches at int5-7;
+    ``stream_attention`` with its smax-2048 and rep-12 points,
+    ``ssd_scan`` with its dk=128 point; ``pack_layout_fused``'s launches
+    include stablelm's 64, qwen2-vl's 56 and the planner's 3, as
+    ``decode_layout_fused``'s the planner's 3; ``ssd_scan``'s the
+    training phase's), the card line
     again, and last ``{"ok": true,
     "device": {...}}``.
 
@@ -939,6 +962,7 @@ def checkpoint_phase(cfg, tree3, tree4, prompts, dev, resident) -> dict:
                                 ragged=True)
         cache = state["packed_kv"]
         torch.cuda.synchronize()
+        kv_extras(cache)
         t0 = time.perf_counter()
         path = pathlib.Path(mgr.save_packed(1, tree3, {"decode_steps":
                                                        DECODE_STEPS},
@@ -3062,6 +3086,15 @@ def main() -> int:
     t0 = time.perf_counter()
     kernels, ckpt = run(SMOLLM_135M, dev)
     phases["smollm-135m"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    planner, direct = planner_phase(SMOLLM_135M, dev)
+    phases["planner"] = time.perf_counter() - t0
+    for k in kernels:
+        if k["name"] == "stream_matmul":
+            k["stream_direct"] = direct
+        elif k["name"] in ("pack_layout_fused", "decode_layout_fused"):
+            k["launches"] += sum(row["launches"][k["name"]]
+                                 for row in direct.values())
     torch.cuda.empty_cache()       # the smollm trees are gone with run()
     t0 = time.perf_counter()
     cfg, cuts = jamba_config()
@@ -3107,6 +3140,7 @@ def main() -> int:
                                           for k, v in phases.items()))
     print(json.dumps({"serve": served}))
     print(json.dumps({"checkpoint": ckpt}))
+    print(json.dumps({"planner": planner}))
     print(json.dumps({"train": train}))
     print(json.dumps({"kernels": kernels}))
     print(f"card: {card}")
@@ -3114,6 +3148,319 @@ def main() -> int:
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
     return 0
+
+
+#: the widths ``matmul_direct`` serves through ``stream_matmul`` in the
+#: planner phase: the ones no lane-packed view holds (int3 is served)
+PLANNER_BITS = (5, 6, 7)
+#: stream-direct matmul against its plain version in the planner phase
+DIRECT_TOL = dict(rtol=1e-5, atol=1e-4)
+
+
+def bundle_layer_problems(cfg, group: int = 32) -> dict:
+    """bits -> the layer bundle problem of ``cfg`` at ``bits``, bits 2-8."""
+    from repro_torch.plan import bundle_problem, layer_bundle_spec
+    from repro_torch.quant import QuantSpec
+
+    return {bits: bundle_problem(layer_bundle_spec(
+        cfg.d_model, cfg.d_ff, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim,
+        QuantSpec(bits=bits, group_size=group))) for bits in range(2, 9)}
+
+
+def planner_pool(cfg) -> dict:
+    """``schedule_many`` of the layer bundles at bits 2-8, group 32, each
+    repeated over the stack's layers, with a pool of 4 (after CUDA is
+    initialised; the pool's fallback warning is an error), serially, and
+    cold: the same count runs, and pool and serial stats equal."""
+    import warnings
+
+    from repro_torch.core import iris
+
+    probs = bundle_layer_problems(cfg)
+    batch = [p for p in probs.values() for _ in range(cfg.n_layers)]
+    t0 = time.perf_counter()
+    pooled = iris.LayoutCache()
+    with warnings.catch_warnings():
+        warnings.simplefilter("error", RuntimeWarning)
+        got = iris.schedule_many(batch, cache=pooled, workers=4)
+    pool_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    serial = iris.LayoutCache()
+    want = iris.schedule_many(batch, cache=serial, workers=1)
+    serial_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    cold = {bits: iris.schedule(p, cache=None, warm_start=False)
+            for bits, p in probs.items()}
+    cold_s = time.perf_counter() - t0
+    cold_runs = [cold[bits].count_intervals for bits in probs
+                 for _ in range(cfg.n_layers)]
+    if [lay.count_intervals for lay in got] != cold_runs \
+            or [lay.count_intervals for lay in want] != cold_runs:
+        raise AssertionError("schedule_many: pool, serial and cold runs "
+                             "differ")
+    if pooled.stats != serial.stats:
+        raise AssertionError(f"schedule_many stats: pool {pooled.stats} "
+                             f"!= serial {serial.stats}")
+    print(f"planner schedule_many: {len(batch)} problems ({len(probs)} "
+          f"unique: bits 2-8, group 32, x {cfg.n_layers} layers), pool of "
+          f"{iris._effective_workers(4, len(probs))} {pool_s:.3f} s wall, "
+          f"serial {serial_s:.3f} s, cold one-by-one {cold_s:.3f} s; "
+          f"pool == serial == cold; stats {pooled.stats}; C_max "
+          f"{[cold[b].c_max for b in probs]}")
+    return {"pool_s": pool_s, "serial_s": serial_s, "cold_s": cold_s,
+            "problems": len(batch), "unique": len(probs)}
+
+
+def planner_warm_and_disk(cfg) -> dict:
+    """Chained warm starts off smollm's int5 layer problem (one array
+    re-specified, one inserted, one deleted, each off the one before),
+    each equal to a cold run; a disk round trip into a fresh cache (one
+    disk hit) and a tampered entry (a coverage gap under a fresh digest,
+    which only the analysis gate sees: one ``disk_rejects``, then a
+    correct re-plan)."""
+    import shutil
+    import tempfile
+    import warnings
+
+    from repro_torch.core import iris
+    from repro_torch.core.task import ArraySpec, LayoutProblem
+
+    base = bundle_layer_problems(cfg)[5]
+    arrays = list(base.arrays)
+    sub = list(arrays)
+    a = sub[0]                                       # attn_norm
+    sub[0] = ArraySpec(a.name, a.width, a.depth + 3, a.due, a.max_lanes)
+    ins = list(sub)
+    ins.insert(8, ArraySpec("wo_bias", arrays[7].width, 50, arrays[7].due))
+    dele = [x for x in ins if x.name != "wk_scales"]
+    chain = [LayoutProblem(m=base.m, arrays=tuple(x))
+             for x in (sub, ins, dele)]
+    cache = iris.LayoutCache()
+    iris.schedule(base, cache=cache)
+    t0 = time.perf_counter()
+    warm = [iris.schedule(p, cache=cache) for p in chain]
+    warm_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    cold = [iris.schedule(p, cache=None, warm_start=False) for p in chain]
+    cold_s = time.perf_counter() - t0
+    if [w.count_intervals for w in warm] != \
+            [c.count_intervals for c in cold]:
+        raise AssertionError("warm-started layouts differ from cold runs")
+    if cache.warm_starts != len(chain):
+        raise AssertionError(f"warm_starts {cache.warm_starts} != "
+                             f"{len(chain)}")
+    print(f"planner warm starts: sub / ins / del chained off smollm's int5 "
+          f"layer problem, {cache.warm_starts} warm starts, each == a cold "
+          f"run; warm {warm_s:.3f} s, cold {cold_s:.3f} s; stats "
+          f"{cache.stats}")
+    tmp = pathlib.Path(tempfile.mkdtemp(prefix="iris-layouts-"))
+    try:
+        lay = iris.schedule(base, cache=iris.LayoutCache(cache_dir=tmp))
+        reader = iris.LayoutCache(cache_dir=tmp)
+        hit = reader.lookup(base)
+        if hit is None or hit.count_intervals != lay.count_intervals \
+                or reader.disk_hits != 1:
+            raise AssertionError(f"disk round trip: {reader.stats}")
+        (path,) = tmp.glob("*.json")
+        obj = json.loads(path.read_text())
+        counts = obj["payload"]["intervals"][0][1]
+        counts[-1][1] -= 1                          # a coverage gap
+        obj["sha256"] = iris.LayoutCache._payload_digest(obj["payload"])
+        path.write_text(json.dumps(obj))
+        tampered = iris.LayoutCache(cache_dir=tmp)
+        with warnings.catch_warnings(record=True) as seen:
+            warnings.simplefilter("always", RuntimeWarning)
+            again = iris.schedule(base, cache=tampered)
+        if tampered.disk_rejects != 1 or \
+                again.count_intervals != lay.count_intervals:
+            raise AssertionError(f"tampered entry: {tampered.stats}")
+        print(f"planner disk tier: round trip into a fresh cache "
+              f"{reader.stats['disk_hits']} disk hit; a tampered entry "
+              f"(coverage gap, fresh digest): {tampered.disk_rejects} "
+              f"disk reject ({str(seen[0].message)[:70]}...), re-planned "
+              f"== the original; stats {tampered.stats}")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return {"warm_starts": cache.warm_starts, "warm_s": warm_s,
+            "warm_cold_s": cold_s, "disk_hits": reader.disk_hits,
+            "disk_rejects": tampered.disk_rejects}
+
+
+def bundle_data(bundle, rng) -> dict[str, np.ndarray]:
+    """Seeded codes for the weights, bf16 patterns of positive scales
+    and of norm values for the rest (uint64, one per element)."""
+    data = {}
+    for b in bundle:
+        if b.width_bits == 16:
+            vals = rng.uniform(0.01, 0.1, b.n_elems) \
+                if b.name.endswith("_scales") \
+                else rng.standard_normal(b.n_elems)
+            data[b.name] = (vals.astype(np.float32).view(np.uint32)
+                            >> np.uint32(16)).astype(np.uint64)
+        else:
+            data[b.name] = rng.integers(0, 1 << b.width_bits, b.n_elems,
+                                        dtype=np.uint64)
+    return data
+
+
+def stream_direct(cfg, bits: int, rng, dev) -> dict:
+    """One smollm layer bundle at ``bits`` (group 32) through the
+    stream-direct path on the card: ``pack_bundle`` on the host;
+    ``pack_layout_fused`` of the same padded pieces on the card (B4) ==
+    that buffer; ``decode_layout_fused`` on the card (B5) == the data;
+    ``stream_words`` on the card; ``LayerStackPlan.matmul_direct`` of
+    the 7 matrices at x (4, K) within ``DIRECT_TOL`` of the plain
+    version and bit-equal to ``Plan.matmul_direct`` of the uint8 rows.
+    Launches are counted from 0 just before the path and read just
+    after; then the 7 matmuls are timed."""
+    import torch
+
+    from repro_torch.api import plan_layer_stack
+    from repro_torch.core.iris import LayoutCache
+    from repro_torch.core.util import pad_bundle_elements
+    from repro_torch.kernels import layout_decode as ld
+    from repro_torch.kernels import layout_pack as lp
+    from repro_torch.kernels import stream_matmul as sm
+    from repro_torch.kernels.ref import table_tensor
+    from repro_torch.plan import pack_bundle
+    from repro_torch.quant import QuantSpec
+
+    cache = LayoutCache()
+    stack = plan_layer_stack(cfg, QuantSpec(bits=bits, group_size=32),
+                             n_layers=1, cache=cache)
+    data = bundle_data(stack.bundle, rng)
+    t0 = time.perf_counter()
+    host = pack_bundle(list(stack.bundle), data=data, cache=cache)
+    host_s = time.perf_counter() - t0
+    lay, prog, ew = stack.layout, stack.exec_program(), stack.elem_widths
+    pieces = pad_bundle_elements(stack.problem, prog, data)
+    mats = layer_mats(cfg)
+    xs = {name: torch.from_numpy(rng.standard_normal(
+        (SERVE_M, k), np.float32)).to(dev) for name, (k, n) in mats.items()}
+    torch.cuda.synchronize()
+    lp.launches = ld.fused_launches = sm.launches = 0
+    packed = lp.pack_layout_fused(lay, pieces, elem_widths=ew, device=dev)
+    decoded = ld.decode_layout_fused(lay, torch.from_numpy(packed).to(dev),
+                                     elem_widths=ew)
+    words = sm.stream_words(prog, torch.from_numpy(host.buffer).to(dev))
+    got = {name: stack.matmul_direct(x, words, name, mats[name])
+           for name, x in xs.items()}
+    via_rows = {name: stack.plans[0].matmul_direct(
+        x, host.buffer, name, mats[name], scales=f"{name}_scales",
+        group_size=32, elem_widths=ew) for name, x in xs.items()}
+    torch.cuda.synchronize()
+    launches = {"pack_layout_fused": lp.launches,
+                "decode_layout_fused": ld.fused_launches,
+                "stream_matmul": sm.launches}
+    if launches != {"pack_layout_fused": 1, "decode_layout_fused": 1,
+                    "stream_matmul": 2 * len(mats)}:
+        raise AssertionError(f"int{bits} stream-direct launches {launches}")
+    if not np.array_equal(packed, host.buffer):
+        raise AssertionError(f"int{bits}: the card's pack != pack_bundle")
+    for i, spec in enumerate(lay.problem.arrays):
+        if not np.array_equal(decoded[spec.name].cpu().numpy(),
+                              pieces[spec.name].view(np.int64)):
+            raise AssertionError(f"int{bits}: decode of {spec.name} != "
+                                 "the data")
+    if not np.array_equal(words.cpu().numpy().view(np.uint32),
+                          prog.buffer_words32(host.buffer).reshape(-1)):
+        raise AssertionError(f"int{bits}: stream_words on the card != host")
+    row = {"ms": 0.0, "device_ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0,
+           "library_device_ms": 0.0, "bytes": 0, "flops": 0}
+    max_err = 0.0
+    for name, (k, n) in mats.items():
+        x = xs[name]
+        tabs = stack.stream_tables(name, (k, n))
+        w_tab, s_tab = (table_tensor(tabs.w_tab, dev),
+                        table_tensor(tabs.s_tab, dev))
+        want = sm.stream_matmul_plain(x, words, w_tab, s_tab, bits=bits,
+                                      group_size=32)
+        err = float((got[name] - want).abs().max())
+        max_err = max(max_err, err)
+        if not torch.allclose(got[name], want, **DIRECT_TOL):
+            raise AssertionError(f"matmul_direct int{bits} {name}: max "
+                                 f"|err| {err:.3g}")
+        if not torch.equal(got[name], via_rows[name]):
+            raise AssertionError(f"matmul_direct int{bits} {name}: words "
+                                 "!= uint8 rows")
+
+        def kernel():
+            return sm.stream_matmul(x, words, w_tab, s_tab, bits=bits,
+                                    group_size=32)
+
+        dense = sm.stream_matmul_plain(torch.eye(k, device=dev), words,
+                                       w_tab, s_tab, bits=bits,
+                                       group_size=32)
+        row["ms"] += time_ms(kernel)
+        row["device_ms"] = add_ms(row["device_ms"],
+                                  device_ms(kernel, "stream_matmul_kernel"))
+        row["plain_ms"] += time_ms(lambda: sm.stream_matmul_plain(
+            x, words, w_tab, s_tab, bits=bits, group_size=32), iters=5)
+        row["library_ms"] += time_ms(lambda: torch.matmul(x, dense))
+        row["library_device_ms"] = add_ms(
+            row["library_device_ms"],
+            device_ms(lambda: torch.matmul(x, dense), None))
+        # codes, scales and both offset tables as each call reads them
+        row["bytes"] += (x.numel() * 4 + -(-k * n * bits // 8)
+                         + s_tab.numel() * 2
+                         + (w_tab.numel() + s_tab.numel()) * 4
+                         + SERVE_M * n * 4)
+        row["flops"] += 2 * SERVE_M * k * n
+    bms, by = bound_ms(row["bytes"], row["flops"])
+    print(f"planner matmul_direct int{bits}: C_max {lay.c_max}, "
+          f"pack_bundle {host_s:.3f} s on the host; the card's "
+          f"pack_layout_fused == its buffer, decode_layout_fused == the "
+          f"data, stream_words == the host words; 7 matmuls at M={SERVE_M} "
+          f"== plain (max|err| {max_err:.3g}) and == Plan.matmul_direct of "
+          f"the uint8 rows; launches {launches}; one layer: kernel "
+          f"{row['ms']:.4f} ms (device {fmt_ms(row['device_ms'])} ms)  "
+          f"plain {row['plain_ms']:.4f} ms  library(matmul of dequantized "
+          f"W) {row['library_ms']:.4f} ms (device "
+          f"{fmt_ms(row['library_device_ms'])} ms)  bound {bms:.5f} ms "
+          f"({by}; {row['bytes']} B with the tables as read)")
+    return {"launches": launches, "max_abs_err": max_err, "ms": row["ms"],
+            "device_ms": row["device_ms"], "plain_ms": row["plain_ms"],
+            "bound_ms": bms, "bound_by": by,
+            "library_ms": row["library_ms"],
+            "library_device_ms": row["library_device_ms"]}
+
+
+def planner_phase(cfg, dev) -> tuple[dict, dict]:
+    """The planner service at smollm's full width: :func:`planner_pool`,
+    :func:`planner_warm_and_disk`, the layout explorer's four tables,
+    and :func:`stream_direct` at ``PLANNER_BITS``.  Returns the planner
+    figures and the stream-direct rows by width."""
+    from repro_torch.examples import layout_explorer
+
+    figures = planner_pool(cfg)
+    figures.update(planner_warm_and_disk(cfg))
+    print(f"planner dse: the layout explorer for {cfg.name} (paper "
+          "Figs. 3-5, Tables 7 and 6, the serving-stream DSE)")
+    t0 = time.perf_counter()
+    layout_explorer.main(["--arch", cfg.name])
+    figures["dse_s"] = time.perf_counter() - t0
+    rng = np.random.default_rng(25)
+    rows = {f"int{bits}": stream_direct(cfg, bits, rng, dev)
+            for bits in PLANNER_BITS}
+    return figures, rows
+
+
+def kv_extras(cache) -> None:
+    """``page_rows_u8`` of one page == its slice of ``host_pages()``, and
+    ``stream_bytes()`` == the pages' bytes."""
+    man = cache.manifest
+    layer, slot, page = cache.n_layers - 1, cache.n_slots - 1, 0
+    rows = cache.page_rows_u8(layer, slot, page)
+    want = cache.host_pages()[layer, slot, page].view(np.uint8).reshape(
+        man.c_max, -1)[:, :man.row_bytes]
+    if not np.array_equal(rows, want):
+        raise AssertionError("page_rows_u8 != host_pages()")
+    if cache.stream_bytes() != cache.pages.numel() * 4:
+        raise AssertionError("stream_bytes() != the pages' bytes")
+    print(f"planner kv: page_rows_u8({layer}, {slot}, {page}) {rows.shape} "
+          f"== host_pages(); stream_bytes() {cache.stream_bytes()} over "
+          f"{cache.n_layers} layers x {cache.n_slots} slots x "
+          f"{cache.n_pages} pages")
 
 
 def run(cfg, dev) -> tuple[list[dict], dict]:

@@ -30,10 +30,10 @@ Two registries make the pipeline pluggable:
 
 Scheduling routes through the process-wide layout cache by default.
 ``Plan.verify`` runs the static analyzer (:mod:`repro_torch.analysis`).
-The reference's ``Plan.stream_tables`` and ``Plan.matmul_direct`` are
-not carried over;
-:meth:`repro_torch.tree.PackedTree.matmul_direct` serves stream-direct
-matmuls.
+``Plan.matmul_direct`` (and ``LayerStackPlan.matmul_direct`` over a
+layer bundle) is the paper's stream-direct exec surface: ``x @
+dequant(W)`` gathered straight out of a packed stream by the
+``stream_matmul`` CUDA kernel, on the card unless given ``device="cpu"``.
 """
 from __future__ import annotations
 
@@ -55,8 +55,10 @@ from .core.codegen import (
 )
 from .core.exec_plan import (
     ExecProgram,
+    StreamTables,
     lower_exec,
     pack_compiled,
+    stream_matmul_tables,
     unpack_compiled,
 )
 from .core.iris import DEFAULT_CACHE, LayoutCache, schedule
@@ -70,6 +72,7 @@ from .core.task import (
     make_problem,
     matmul_problem,
 )
+from .device import resolve_device
 from .plan import LayerStackPlan, plan_layer_stack
 from .tree import LayoutManifest, PackedTree, pack_tree, unpack_streams
 
@@ -80,6 +83,7 @@ __all__ = [
     "STRATEGIES", "BACKENDS", "strategies", "backends",
     "plan", "plan_many", "compare", "plan_layer_stack",
     "ExecProgram", "lower_exec", "pack_compiled", "unpack_compiled",
+    "StreamTables", "stream_matmul_tables",
     "PackedTree", "pack_tree", "unpack_streams", "LayoutManifest",
 ]
 
@@ -216,6 +220,8 @@ class Plan:
         self._decode_plan: DecodePlan | None = None
         self._exec_program: ExecProgram | None = None
         self._provenance: str | None = None
+        self._stream_tables: dict = {}
+        self._device_tables: dict = {}
 
     # -- lazy pipeline stages ------------------------------------------
     @property
@@ -327,6 +333,69 @@ class Plan:
                 f"backend {target!r} cannot emit source; use one of {can}"
             )
         return b.emit(self, **kw)
+
+    # -- stream-direct execution ----------------------------------------
+    def _program(self, elem_widths: tuple[int, ...] | None) -> ExecProgram:
+        return self.exec_program if elem_widths is None \
+            else lower_exec(self.layout, elem_widths=elem_widths)
+
+    def stream_tables(self, weights: int | str, shape: tuple[int, int], *,
+                      scales: int | str, group_size: int,
+                      elem_widths: tuple[int, ...] | None = None,
+                      ) -> StreamTables:
+        """Bit-offset tables for one ``(K, N)`` stream-direct matmul.
+
+        Memoized per (operands, shape, granularity): serving calls build
+        the tables once per weight matrix, not per token.
+        """
+        key = (weights, scales, shape, group_size, elem_widths)
+        tabs = self._stream_tables.get(key)
+        if tabs is None:
+            tabs = stream_matmul_tables(
+                self.layout, weights, shape, scales=scales,
+                group_size=group_size, program=self._program(elem_widths))
+            self._stream_tables[key] = tabs
+        return tabs
+
+    def matmul_direct(self, x, buf, weights: int | str,
+                      shape: tuple[int, int], *, scales: int | str,
+                      group_size: int,
+                      elem_widths: tuple[int, ...] | None = None,
+                      device=None) -> torch.Tensor:
+        """``x @ dequant(weights)`` straight out of the packed stream.
+
+        No dense intermediate materializes: the ``stream_matmul`` kernel
+        gathers packed words from ``buf`` against this plan's bit-offset
+        tables.  ``buf`` is the packed ``(c_max, m/8)`` uint8 buffer
+        (numpy or tensor) or the flat words of
+        :func:`~repro_torch.kernels.stream_matmul.stream_words`.  Runs on
+        ``device``; without one, on ``x``'s device when ``x`` is a tensor,
+        else on the card (``RuntimeError`` without one).  Only a CPU
+        device runs the kernel's plain version.  Returns (M, N) f32.
+        """
+        from .kernels.ref import table_tensor
+        from .kernels.stream_matmul import stream_matmul, stream_words
+
+        if device is None and isinstance(x, torch.Tensor):
+            dev = x.device
+        else:
+            dev = resolve_device(device)
+        tabs = self.stream_tables(weights, shape, scales=scales,
+                                  group_size=group_size,
+                                  elem_widths=elem_widths)
+        key = (weights, scales, shape, group_size, elem_widths, str(dev))
+        dtabs = self._device_tables.get(key)
+        if dtabs is None:
+            dtabs = (table_tensor(tabs.w_tab, dev),
+                     table_tensor(tabs.s_tab, dev))
+            self._device_tables[key] = dtabs
+        x = torch.as_tensor(x).to(dev)
+        if isinstance(buf, torch.Tensor) and buf.dtype == torch.int32:
+            words = buf.to(dev)
+        else:
+            words = stream_words(self._program(elem_widths), buf, device=dev)
+        return stream_matmul(x, words, *dtabs, bits=tabs.bits,
+                             group_size=group_size)
 
     # -- conveniences ---------------------------------------------------
     def validate(self) -> "Plan":

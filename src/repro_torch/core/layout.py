@@ -2,9 +2,10 @@
 
 Own copy of ``src/repro/core/layout.py``: the interval-native
 :class:`Layout` (count runs, vectorized legality check, lazy intervals,
-validation, rebind), the paper metrics (:class:`LayoutMetrics`: B_eff,
-lateness, FIFO depths, write ports) and the ASCII renderer.  The
-per-cycle ``Segment`` views stay in the reference.
+validation, rebind), the per-cycle :class:`Segment` views of small
+layouts (``cycles``, ``element_positions``), the paper metrics
+(:class:`LayoutMetrics`: B_eff, lateness, FIFO depths, write ports) and
+the ASCII renderer.
 
 A :class:`Layout` assigns every element of every array to a (cycle, bit
 offset) position on the bus, in due-date space.  The ground truth is a
@@ -22,6 +23,19 @@ from .task import LayoutProblem
 
 # A per-cycle slot structure: ((array_index, elems_per_cycle), ...) lane order.
 Counts = tuple[tuple[int, int], ...]
+
+
+@dataclasses.dataclass(frozen=True)
+class Segment:
+    """``n_elems`` consecutive elements of one array in one bus cycle."""
+
+    array: int       # index into problem.arrays
+    elem_start: int  # index of the first element transferred
+    n_elems: int
+    bit_offset: int  # offset of the first element's LSB within the bus word
+
+    def bits(self, problem: LayoutProblem) -> int:
+        return self.n_elems * problem.arrays[self.array].width
 
 
 @dataclasses.dataclass(frozen=True)
@@ -60,6 +74,9 @@ class LayoutMetrics:
         }
 
 
+_MATERIALIZE_LIMIT = 1 << 18  # refuse to expand >256k cycles unless forced
+
+
 class Layout:
     """A complete bus layout in due-date space, interval-native."""
 
@@ -79,12 +96,34 @@ class Layout:
                 if n > 0
             )
         self._intervals: list[Interval] | None = None
+        self._cycles: list[list[Segment]] | None = None
         # lowered execution programs (repro_torch.core.exec_plan), keyed
         # by piece-width tuple; shared across rebinds (programs are
         # name-free), so a LayoutCache hit never re-lowers
         self._exec_cache: dict[tuple, object] = {}
+        # vectorized replay tables for warm-started re-planning
+        # (repro_torch.core.iris._schedule_warm); name-free, so rebinds
+        # share them too
+        self._replay_cache: dict[str, object] = {}
         self._flat: tuple | None = None
         self._check_intervals_fast()
+
+    @staticmethod
+    def from_counts(problem: LayoutProblem,
+                    count_cycles: Sequence[Counts],
+                    reverse: bool = False) -> "Layout":
+        """Build from per-cycle (array, n_elems) counts, merging runs;
+        ``reverse=True`` flips the cycle order first (release-time space
+        -> due-date space)."""
+        seq = list(reversed(count_cycles)) if reverse else list(count_cycles)
+        runs: list[tuple[int, Counts]] = []
+        for counts in seq:
+            counts = tuple((a, e) for a, e in counts if e > 0)
+            if runs and runs[-1][1] == counts:
+                runs[-1] = (runs[-1][0] + 1, counts)
+            else:
+                runs.append((1, counts))
+        return Layout(problem, runs)
 
     @staticmethod
     def from_count_intervals(problem: LayoutProblem,
@@ -105,6 +144,7 @@ class Layout:
             )
         lay = Layout(problem, self.count_intervals, _normalized=True)
         lay._exec_cache = self._exec_cache
+        lay._replay_cache = self._replay_cache
         lay._intervals = self._intervals
         lay._flat = self._flat
         return lay
@@ -239,6 +279,43 @@ class Layout:
             self._build_intervals()
         assert self._intervals is not None
         return self._intervals
+
+    @property
+    def cycles(self) -> list[list[Segment]]:
+        """Per-cycle segment lists (materialized; small layouts only)."""
+        if self._cycles is None:
+            if self.c_max > _MATERIALIZE_LIMIT:
+                raise RuntimeError(
+                    f"refusing to materialize {self.c_max} cycles; "
+                    "use intervals() instead"
+                )
+            out: list[list[Segment]] = []
+            for iv in self.intervals():
+                for c in range(iv.n_cycles):
+                    out.append([
+                        Segment(array, base + c * n, n, off)
+                        for (array, off, n), base in zip(iv.slots,
+                                                         iv.elem_base)
+                    ])
+            self._cycles = out
+        return self._cycles
+
+    def element_positions(self, array: int) -> list[tuple[int, int]]:
+        """(cycle, bit_offset) per element, in element order."""
+        spec = self.problem.arrays[array]
+        pos: list[tuple[int, int] | None] = [None] * spec.depth
+        for iv in self.intervals():
+            for (arr, off, n), base in zip(iv.slots, iv.elem_base):
+                if arr != array:
+                    continue
+                for c in range(iv.n_cycles):
+                    for k in range(n):
+                        pos[base + c * n + k] = (
+                            iv.start_cycle + c,
+                            off + k * spec.width,
+                        )
+        assert all(p is not None for p in pos)
+        return pos  # type: ignore[return-value]
 
     # ------------------------------------------------------------------
     # metrics (paper §4, §6), O(intervals)

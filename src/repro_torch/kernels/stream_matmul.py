@@ -8,6 +8,8 @@ for what bounds it on an H100 and how its design answers that).
 version :func:`stream_matmul_plain` (``kernels/ref.stream_matmul_ref``);
 for CUDA tensors it launches the kernel on the current stream or raises.
 It never falls back.  ``launches`` counts kernel launches.
+:func:`stream_words` turns a packed ``(c_max, m/8)`` uint8 buffer into
+the flat word stream the kernel reads.
 
 Bound on an H100 (3.35 TB/s HBM, 67 TFLOP/s f32): per decode step and
 layer of smollm-135m the 7 calls read 16.5 MB, mostly the u32 offset
@@ -26,13 +28,17 @@ from __future__ import annotations
 
 import ctypes
 
+import numpy as np
 import torch
+import torch.nn.functional as F
 
+from ..device import resolve_device
 from . import build
 from .ref import stream_matmul_ref as stream_matmul_plain
+from .ref import words_tensor
 
 __all__ = ["launches", "matmul_launch", "stream_matmul",
-           "stream_matmul_plain"]
+           "stream_matmul_plain", "stream_words"]
 
 #: kernel launches made by :func:`stream_matmul` (reset by callers that
 #: want to prove a run went through the kernel)
@@ -128,3 +134,27 @@ def stream_matmul(x: torch.Tensor, words: torch.Tensor, w_tab: torch.Tensor,
     build.check_launch("stream_matmul", rc)
     launches += 1
     return out
+
+
+def stream_words(program, buf_u8, device=None) -> torch.Tensor:
+    """Packed ``(c_max, m/8)`` uint8 buffer -> the flat int32-stored u32
+    word stream :func:`stream_matmul` reads (``program.buffer_words32``,
+    each row padded to whole words).
+
+    A numpy buffer is converted on the host once and sent to ``device``
+    (``"cuda"`` unless given; ``RuntimeError`` without a card).  A uint8
+    tensor is converted on its own device, or on ``device`` when given.
+    """
+    if isinstance(buf_u8, torch.Tensor):
+        if tuple(buf_u8.shape) != (program.c_max, program.row_bytes) \
+                or buf_u8.dtype != torch.uint8:
+            raise ValueError(
+                f"buffer {tuple(buf_u8.shape)} {buf_u8.dtype} != "
+                f"({program.c_max}, {program.row_bytes}) uint8")
+        if device is not None:
+            buf_u8 = buf_u8.to(device)
+        pad = program.words32 * 4 - program.row_bytes
+        return F.pad(buf_u8, (0, pad)).contiguous().view(torch.int32) \
+            .reshape(-1)
+    words = program.buffer_words32(np.asarray(buf_u8, dtype=np.uint8))
+    return words_tensor(words.reshape(-1), resolve_device(device))

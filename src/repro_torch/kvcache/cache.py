@@ -204,8 +204,16 @@ class PackedKVCache:
         return self.pages.device
 
     @property
+    def n_layers(self) -> int:
+        return self.manifest.n_layers
+
+    @property
     def n_slots(self) -> int:
         return self.manifest.n_slots
+
+    @property
+    def n_pages(self) -> int:
+        return self.manifest.n_pages
 
     @property
     def smax(self) -> int:
@@ -214,6 +222,10 @@ class PackedKVCache:
     @property
     def bits(self) -> int:
         return self.manifest.bits
+
+    def stream_bytes(self) -> int:
+        """Total packed page bytes resident for the whole cache."""
+        return self.pages.numel() * 4
 
     # -- write path -----------------------------------------------------
     def _append_tables(self) -> dict:
@@ -331,6 +343,14 @@ class PackedKVCache:
     def host_pages(self) -> np.ndarray:
         """The pages as host uint32 words."""
         return self.pages.cpu().numpy().view(np.uint32)
+
+    def page_rows_u8(self, layer: int, slot: int, page: int) -> np.ndarray:
+        """One page as ``(c_max, row_bytes)`` uint8 rows on the host (a
+        copy of that page alone; the analysis view)."""
+        man = self.manifest
+        words = self.pages[layer, slot, page].cpu().numpy()
+        return np.ascontiguousarray(words).view(np.uint8).reshape(
+            man.c_max, man.words32 * 4)[:, :man.row_bytes]
 
     def verify(self, **kw):
         """Run :func:`repro_torch.analysis.verify_kvcache` over this cache

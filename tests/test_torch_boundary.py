@@ -91,6 +91,25 @@ def test_entry_points_raise_without_cuda_and_device():
         Model(cfg).init_decode_state(1, 8)
     with pytest.raises(RuntimeError, match="CUDA"):
         Model(JAMBA_1_5_LARGE.reduced(moe=None, n_layers=8)).init()
+    # the stream-direct exec surface: numpy inputs and no device
+    from repro_torch.api import plan_layer_stack
+    from repro_torch.core.iris import LayoutCache
+    from repro_torch.kernels.stream_matmul import stream_words
+
+    stack = plan_layer_stack(cfg, QuantSpec(bits=5, group_size=32),
+                             n_layers=1, cache=LayoutCache())
+    prog = stack.exec_program()
+    buf = np.zeros((prog.c_max, prog.row_bytes), np.uint8)
+    x = np.zeros((2, cfg.d_model), np.float32)
+    shape = (cfg.d_model, cfg.n_heads * cfg.head_dim)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        stream_words(prog, buf)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        stack.matmul_direct(x, buf, "wq", shape)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        stack.plans[0].matmul_direct(x, buf, "wq", shape, scales="wq_scales",
+                                     group_size=32,
+                                     elem_widths=stack.elem_widths)
 
 
 def test_serve_cli_refuses_without_cuda():
@@ -118,6 +137,29 @@ def test_kernel_wrappers_never_fall_back():
                                             device=meta),
                       torch.empty((2, 8), dtype=torch.int32, device=meta),
                       bits=3, group_size=32)
+    # the stream-direct entry points take the wrapper's path
+    from repro_torch.api import plan_layer_stack
+    from repro_torch.configs import SMOLLM_135M
+    from repro_torch.core.iris import LayoutCache
+    from repro_torch.kernels.stream_matmul import stream_words
+    from repro_torch.quant import QuantSpec
+
+    cfg = SMOLLM_135M.reduced(n_layers=1)
+    stack = plan_layer_stack(cfg, QuantSpec(bits=6, group_size=32),
+                             n_layers=1, cache=LayoutCache())
+    prog = stack.exec_program()
+    mwords = stream_words(prog, torch.empty(
+        (prog.c_max, prog.row_bytes), dtype=torch.uint8, device=meta))
+    assert mwords.device == meta and mwords.dtype == torch.int32
+    xm = torch.empty((2, cfg.d_model), device=meta)
+    shape = (cfg.d_model, cfg.n_heads * cfg.head_dim)
+    with pytest.raises(ValueError, match="cpu or cuda"):
+        stack.matmul_direct(xm, mwords, "wq", shape)
+    with pytest.raises(ValueError, match="cpu or cuda"):
+        stack.plans[0].matmul_direct(
+            torch.zeros((2, cfg.d_model)), mwords, "wq", shape,
+            scales="wq_scales", group_size=32,
+            elem_widths=stack.elem_widths, device=meta)
     q = torch.empty((1, 1, 2, 4), dtype=torch.bfloat16, device=meta)
     tab = torch.empty((4, 1, 4), dtype=torch.int32, device=meta)
     stab = torch.empty((4, 1), dtype=torch.int32, device=meta)

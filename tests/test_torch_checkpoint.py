@@ -295,7 +295,8 @@ def test_warm_cache_hits_and_cold_cache_never_schedules(tmp_path, packed,
     from repro_torch.core import iris
 
     monkeypatch.setattr(iris, "schedule", refuse)
-    monkeypatch.setattr(plan_mod, "schedule", refuse)
+    monkeypatch.setattr(iris, "schedule_many", refuse)
+    monkeypatch.setattr(plan_mod, "schedule_many", refuse)
     cold = LayoutCache()
     got, _ = mgr.restore_packed(cache=cold, device="cpu")
     assert got.provenance == "manifest"

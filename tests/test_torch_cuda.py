@@ -1151,3 +1151,112 @@ def test_train_step_on_the_card_equals_the_cpu(cuda):
         outliers += int((err > 1e-5).sum())
         total += err.numel()
     assert outliers <= 1e-4 * total
+
+
+def _bundle_layer(bits, *, full_width=True, seed=0):
+    """smollm-135m's layer bundle at ``bits``, group 32, packed on the
+    host with seeded codes and bf16 scale / norm patterns."""
+    from repro_torch.api import plan_layer_stack
+    from repro_torch.configs import SMOLLM_135M
+    from repro_torch.core.iris import LayoutCache
+    from repro_torch.plan import pack_bundle
+    from repro_torch.quant import QuantSpec
+
+    cfg = SMOLLM_135M if full_width else SMOLLM_135M.reduced()
+    stack = plan_layer_stack(cfg, QuantSpec(bits=bits, group_size=32),
+                             n_layers=1, cache=LayoutCache())
+    rng = np.random.default_rng(seed)
+    data = {}
+    for b in stack.bundle:
+        if b.width_bits == 16:
+            vals = rng.uniform(0.01, 0.1, b.n_elems) \
+                if b.name.endswith("_scales") else rng.standard_normal(
+                    b.n_elems)
+            data[b.name] = (vals.astype(np.float32).view(np.uint32)
+                            >> np.uint32(16)).astype(np.uint64)
+        else:
+            data[b.name] = rng.integers(0, 1 << bits, b.n_elems,
+                                        dtype=np.uint64)
+    pb = pack_bundle(list(stack.bundle), data=data, cache=LayoutCache())
+    d, f = cfg.d_model, cfg.d_ff
+    q, kv = cfg.n_heads * cfg.head_dim, cfg.n_kv_heads * cfg.head_dim
+    mats = {"wq": (d, q), "wk": (d, kv), "wv": (d, kv), "wo": (q, d),
+            "w_gate": (d, f), "w_up": (d, f), "w_down": (f, d)}
+    return stack, pb.buffer, mats
+
+
+@pytest.mark.parametrize("bits", [5, 6, 7])
+def test_matmul_direct_int5_to_int7_on_the_card(cuda, bits):
+    """``LayerStackPlan.matmul_direct`` of smollm-135m's seven matrices at
+    full width: one ``stream_matmul`` launch each, within the stated
+    tolerance of the plain version on the same words and tables, and bit
+    for bit the ``Plan.matmul_direct`` of the uint8 rows."""
+    from repro_torch.kernels import stream_matmul as sm
+    from repro_torch.kernels.ref import table_tensor
+
+    stack, buf, mats = _bundle_layer(bits, seed=bits)
+    words = sm.stream_words(stack.exec_program(), buf)
+    assert words.is_cuda
+    rng = np.random.default_rng(bits)
+    for name, (k, n) in mats.items():
+        x = torch.from_numpy(rng.standard_normal((4, k), np.float32)).to(cuda)
+        before = sm.launches
+        got = stack.matmul_direct(x, words, name, (k, n))
+        torch.cuda.synchronize()
+        assert got.is_cuda and sm.launches == before + 1, name
+        tabs = stack.stream_tables(name, (k, n))
+        w_tab = table_tensor(tabs.w_tab, cuda)
+        s_tab = table_tensor(tabs.s_tab, cuda)
+        want = sm.stream_matmul_plain(x, words, w_tab, s_tab, bits=bits,
+                                      group_size=tabs.group_size)
+        torch.testing.assert_close(got, want, rtol=MM_RTOL, atol=MM_ATOL)
+        rows = stack.plans[0].matmul_direct(
+            x, buf, name, (k, n), scales=f"{name}_scales",
+            group_size=tabs.group_size, elem_widths=stack.elem_widths)
+        assert torch.equal(got, rows), name
+
+
+@pytest.mark.parametrize("bits", [3, 5, 7])
+def test_stream_words_on_the_card_equal_the_host_words(cuda, bits):
+    from repro_torch.kernels.stream_matmul import stream_words
+
+    stack, buf, _ = _bundle_layer(bits, full_width=False, seed=bits)
+    prog = stack.exec_program()
+    host = prog.buffer_words32(buf).reshape(-1)
+    from_numpy = stream_words(prog, buf)
+    from_rows = stream_words(prog, torch.from_numpy(buf).to(cuda))
+    assert from_numpy.is_cuda and from_rows.is_cuda
+    assert np.array_equal(from_numpy.cpu().numpy().view(np.uint32), host)
+    assert torch.equal(from_numpy, from_rows)
+    on_cpu = stream_words(prog, buf, device="cpu")
+    assert torch.equal(on_cpu, from_numpy.cpu())
+
+
+def test_schedule_many_pool_after_cuda_init_equals_serial(cuda,
+                                                          monkeypatch):
+    """The pool's workers start cleanly from a process that holds CUDA
+    and torch's threads (its fallback warning is an error here), within
+    a bounded time, and give the serial run's layouts and counters."""
+    import warnings
+
+    from repro_torch.core import iris
+    from repro_torch.core.task import ArraySpec, LayoutProblem
+
+    torch.ones(1024, device=cuda).sum().item()      # CUDA initialised
+    torch.randn(256, 256) @ torch.randn(256, 256)   # and torch's threads
+    rng = np.random.default_rng(0)
+    probs = [LayoutProblem(m=64, arrays=tuple(
+        ArraySpec(f"a{i}", int(rng.integers(2, 9)),
+                  int(rng.integers(50, 400)), int(rng.integers(1, 40)))
+        for i in range(5))) for _ in range(6)]
+    serial = iris.LayoutCache()
+    want = [lay.count_intervals for lay in
+            iris.schedule_many(probs * 2, cache=serial, workers=1)]
+    monkeypatch.setattr(iris, "POOL_TIMEOUT_S", 120.0)
+    pooled = iris.LayoutCache()
+    with warnings.catch_warnings():
+        warnings.simplefilter("error", RuntimeWarning)
+        got = [lay.count_intervals for lay in
+               iris.schedule_many(probs * 2, cache=pooled, workers=2)]
+    assert got == want
+    assert pooled.stats == serial.stats

@@ -127,6 +127,33 @@ def test_page_words_bit_identical_after_walk(bits, hd, seed):
     assert np.array_equal(pv.numpy(), np.asarray(rv))
 
 
+@pytest.mark.parametrize("bits,hd,seed", [(3, 5, 0), (4, 64, 3),
+                                          (5, 8, 4)])
+def test_geometry_stream_bytes_and_page_rows_match_reference(bits, hd,
+                                                            seed):
+    """``n_layers``, ``n_pages``, ``stream_bytes()`` and every page's
+    ``page_rows_u8`` equal the reference's after the same appends."""
+    ref, port = _pair(bits, hd)
+    ref, port, _ = _run_walk(ref, port, _walk_ops(seed), seed, layer=1)
+    assert (port.n_layers, port.n_slots, port.n_pages) \
+        == (ref.n_layers, ref.n_slots, ref.n_pages) == (2, 3, 2)
+    assert port.stream_bytes() == ref.stream_bytes() \
+        == port.pages.numel() * 4
+    host = port.host_pages()
+    man = port.manifest
+    for layer in range(port.n_layers):
+        for slot in range(port.n_slots):
+            for page in range(port.n_pages):
+                rows = port.page_rows_u8(layer, slot, page)
+                assert rows.dtype == np.uint8
+                assert rows.shape == (man.c_max, man.row_bytes)
+                assert np.array_equal(
+                    rows, ref.page_rows_u8(layer, slot, page))
+                assert np.array_equal(
+                    rows, host[layer, slot, page].view(np.uint8)
+                    .reshape(man.c_max, -1)[:, :man.row_bytes])
+
+
 def test_append_overwrite_and_reset_in_place():
     ref, port = _pair(3, 8, n_slots=2)
     rng = np.random.default_rng(5)
