@@ -195,7 +195,32 @@
     In the checkpoint phase, after the int3 serve, ``page_rows_u8`` of
     one KV page == its slice of ``host_pages()`` and ``stream_bytes()``
     == the pages' bytes (``planner kv`` line).
-17. Prints each phase's wall seconds, one JSON ``serve`` line (ms per
+17. The distributed substrate (:func:`distributed_phase`, after the
+    training): a one-rank NCCL group (a ``FileStore`` in a temporary
+    directory) and a (1, 1) ``("data", "model")`` ``DeviceMesh``.
+    smollm-135m's full-width train state placed by
+    ``param_shardings(fsdp=True)`` / ``opt_state_shardings`` takes 3
+    sharded train steps at B=8, S=1024 beside 3 unsharded steps from the
+    same state and batches (losses within ``SHARDED_LOSS_RTOL``; ms per
+    step of each: DTensor's host overhead); the int3 smollm
+    ``PackedTree`` placed by ``packed_tree_shardings`` serves 8 requests
+    through ``Engine(PackedAdapter)`` with greedy tokens equal to the
+    unplaced serve's (``stream_matmul`` and ``stream_attention``
+    launches counted into the ``kernels`` line); ``reshard_live`` of the
+    placed train state onto a (1,) mesh, bit-equal, with ms and GB;
+    ``CheckpointManager.restore(..., shardings=)`` of a train checkpoint
+    onto the mesh, bit-equal; ``pipeline_forward`` with one stage ==
+    the plain stage loop.  The group is destroyed at the end of the
+    phase.
+18. The dry run (:func:`dryrun_phase`): ``launch.dryrun.run_cell`` of
+    smollm-135m at the measured training shape (B=8, S=1024, one card):
+    counted FLOPs beside ``train_flops``, counted bytes per card
+    (argument + temp) beside the measured step's peak memory, the
+    roofline bound beside the measured ms per step; then every
+    (arch x shape) cell of ``shape_cells`` on the (16, 16) production
+    mesh, counted on the host over a process pool, one line a cell; any
+    cell not ``ok`` fails the run.
+19. Prints each phase's wall seconds, one JSON ``serve`` line (ms per
     step of the packed serves of stablelm-3b and qwen2-vl-2b, and of the
     unquantized serves of moonshot, rwkv6-3b and whisper-medium), one
     JSON ``checkpoint`` line (the checkpoint phase's figures), one JSON
@@ -210,8 +235,10 @@
     ``ssd_scan`` with its dk=128 point; ``pack_layout_fused``'s launches
     include stablelm's 64, qwen2-vl's 56 and the planner's 3, as
     ``decode_layout_fused``'s the planner's 3; ``ssd_scan``'s the
-    training phase's), the card line
-    again, and last ``{"ok": true,
+    training phase's; ``stream_matmul``, ``stream_attention`` and
+    ``pack_layout_fused``'s the distributed phase's), one JSON
+    ``distributed`` line (the distributed and dry-run phases' figures),
+    the card line again, and last ``{"ok": true,
     "device": {...}}``.
 
 Any failed check raises, and the script exits non-zero without the last
@@ -3040,6 +3067,286 @@ def train_jamba_grad(dev) -> tuple[dict, int]:
             total)
 
 
+#: the sharded train step's losses against the unsharded step's (bf16
+#: weights, the same state and batches; a (1, 1) mesh computes the same
+#: products, so only reduction orders may differ)
+SHARDED_LOSS_RTOL = 1e-3
+DIST_TRAIN_STEPS = 3
+
+
+def _group(dev):
+    """A one-rank process group on a ``FileStore`` in a temporary
+    directory (NCCL on a card, gloo on the CPU); returns the directory."""
+    import tempfile
+
+    import torch.distributed as dist
+
+    tmp = tempfile.TemporaryDirectory(prefix="dist_store_")
+    store = dist.FileStore(f"{tmp.name}/store", 1)
+    dist.init_process_group("nccl" if dev.type == "cuda" else "gloo",
+                            store=store, rank=0, world_size=1)
+    return tmp
+
+
+def _sync(dev) -> None:
+    import torch
+
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+
+
+def distributed_phase(cfg, dev, card: str) -> dict:
+    """The distributed substrate on one card (step 17 of the docstring).
+    Returns its figures, with the main path's kernel launches under
+    ``launches``."""
+    import tempfile
+
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.checkpoint.checkpoint import CheckpointManager
+    from repro_torch.data.pipeline import SyntheticLMPipeline
+    from repro_torch.kernels import layout_pack as lp
+    from repro_torch.launch.mesh import make_debug_mesh
+    from repro_torch.launch.sharding import (
+        batch_sharding,
+        opt_state_shardings,
+        packed_tree_shardings,
+        param_shardings,
+        place,
+    )
+    from repro_torch.launch.steps import build_train_step, init_train_state
+    from repro_torch.models.params import init_params
+    from repro_torch.models.shard_utils import local, use_mesh
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.pytree import flatten
+    from repro_torch.quant import QuantSpec
+    from repro_torch.runtime.elastic import reshard_live, validate_resharding
+    from repro_torch.runtime.pipeline_par import (
+        PipelineConfig,
+        pipeline_forward,
+    )
+    from repro_torch.runtime.train_loop import device_batch
+    from repro_torch.tree import pack_tree
+
+    figures: dict = {"card": card}
+    store = _group(dev)
+    try:
+        mesh = make_debug_mesh((1, 1), ("data", "model"),
+                               device_type=dev.type)
+        # --- sharded training against unsharded, from one state ---------
+        state = init_train_state(cfg, torch.Generator(device=dev)
+                                 .manual_seed(0), dev)
+        pipe = SyntheticLMPipeline(cfg.vocab_size, TRAIN_S, TRAIN_B, seed=0)
+        batches = [device_batch(pipe.next_batch(), dev)
+                   for _ in range(DIST_TRAIN_STEPS)]
+        step = build_train_step(cfg, AdamWConfig(lr=3e-3, warmup_steps=10,
+                                                 total_steps=TRAIN_STEPS),
+                                remat="full")
+
+        def steps(st, bs, placed: bool):
+            losses, ms = [], []
+            for b in bs:
+                _sync(dev)
+                t0 = time.perf_counter()
+                if placed:
+                    with use_mesh(mesh):
+                        st, m = step(st, b)
+                else:
+                    st, m = step(st, b)
+                _sync(dev)
+                ms.append((time.perf_counter() - t0) * 1e3)
+                losses.append(float(local(m["loss"])))
+            return st, losses, ms
+
+        _, plain_losses, plain_ms = steps(state, batches, False)
+        ps_ = param_shardings(state["params"], mesh, fsdp=True)
+        rules = {"params": ps_,
+                 "opt": opt_state_shardings(state["opt"], ps_, mesh)}
+        t0 = time.perf_counter()
+        placed = place(state, rules)
+        placed_batches = [place(b, batch_sharding(b, mesh))
+                          for b in batches]
+        place_ms = (time.perf_counter() - t0) * 1e3
+        _, losses, ms = steps(placed, placed_batches, True)
+        err = max(abs(a - b) for a, b in zip(losses, plain_losses))
+        rel = err / max(abs(b) for b in plain_losses)
+        print(f"distributed train smollm-135m (full width, B={TRAIN_B} "
+              f"S={TRAIN_S}, {DIST_TRAIN_STEPS} steps, state placed by "
+              f"param_shardings(fsdp=True) / opt_state_shardings on a "
+              f"(1, 1) mesh, placed in {place_ms:.1f} ms): losses "
+              f"{[round(x, 6) for x in losses]} vs unsharded "
+              f"{[round(x, 6) for x in plain_losses]}, max |diff| "
+              f"{err:.3g} (rel {rel:.3g}, gate {SHARDED_LOSS_RTOL}); ms "
+              f"per step sharded {[round(x, 1) for x in ms]} vs unsharded "
+              f"{[round(x, 1) for x in plain_ms]} (median "
+              f"{float(np.median(ms)):.1f} vs "
+              f"{float(np.median(plain_ms)):.1f}: DTensor's host overhead "
+              f"{float(np.median(ms) - np.median(plain_ms)):.1f} ms)")
+        if not rel <= SHARDED_LOSS_RTOL or not np.isfinite(losses).all():
+            raise AssertionError(f"sharded losses {losses} against "
+                                 f"{plain_losses}")
+        figures["train"] = {
+            "losses": losses, "unsharded_losses": plain_losses,
+            "max_abs_diff": err, "ms_per_step": ms,
+            "unsharded_ms_per_step": plain_ms, "place_ms": place_ms}
+        # --- reshard onto a (1,) mesh, and restore onto the mesh -------
+        mesh1 = make_debug_mesh((1,), ("data",), device_type=dev.type)
+        p1 = param_shardings(state["params"], mesh1, fsdp=True)
+        rules1 = {"params": p1,
+                  "opt": opt_state_shardings(state["opt"], p1, mesh1)}
+        nbytes = sum(x.numel() * x.element_size() for x in flatten(state))
+        _sync(dev)
+        t0 = time.perf_counter()
+        moved = reshard_live(placed, rules1)
+        _sync(dev)
+        reshard_ms = (time.perf_counter() - t0) * 1e3
+        validate_resharding(state, moved)
+        validate_resharding(placed, moved)
+        print(f"distributed reshard_live: the train state "
+              f"({nbytes / 1e9:.4f} GB, {len(flatten(state))} leaves) "
+              f"(1, 1) -> (1,) mesh in {reshard_ms:.1f} ms, bit-equal: True")
+        del moved, placed, placed_batches
+        with tempfile.TemporaryDirectory(prefix="dist_ckpt_") as d:
+            mgr = CheckpointManager(d)
+            mgr.save(7, state)
+            t0 = time.perf_counter()
+            restored, _ = mgr.restore(state, shardings=rules)
+            _sync(dev)
+            restore_ms = (time.perf_counter() - t0) * 1e3
+            validate_resharding(state, restored)
+            kinds = {type(x).__name__ for x in flatten(restored)}
+        print(f"distributed restore(shardings=): the train checkpoint "
+              f"onto the (1, 1) mesh as {sorted(kinds)} in "
+              f"{restore_ms:.1f} ms, bit-equal: True")
+        if kinds != {"DTensor"}:
+            raise AssertionError(f"restore placed {kinds}")
+        figures["reshard"] = {"ms": reshard_ms, "gb": nbytes / 1e9}
+        figures["restore_ms"] = restore_ms
+        del restored, state
+        # --- pipeline with one stage -----------------------------------
+        smesh = make_debug_mesh((1,), ("stage",), device_type=dev.type)
+        g = torch.Generator(device=dev).manual_seed(5)
+        ws = torch.randn((1, 64, 64), generator=g, device=dev) * 0.3
+        x = torch.randn((6, 2, 64), generator=g, device=dev)
+        out = pipeline_forward(lambda w, a: torch.tanh(a @ w), smesh,
+                               PipelineConfig(1, 6), ws, x)
+        want = torch.stack([torch.tanh(xi @ ws[0]) for xi in x])
+        perr = float((out - want).abs().max())
+        print(f"distributed pipeline_forward (1 stage, 6 microbatches of "
+              f"(2, 64)) == the plain stage loop: max |diff| {perr:.3g}")
+        if perr != 0.0:
+            raise AssertionError(f"pipeline: {perr}")
+        # --- the placed packed serve -----------------------------------
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+        params = init_params(cfg, torch.Generator(device=dev)
+                             .manual_seed(0), device=dev)
+        lp.launches = 0
+        tree = pack_tree(cfg, params, QuantSpec(bits=3, group_size=32),
+                         device=dev)
+        pack_launches = lp.launches
+        del params
+        rng = np.random.default_rng(0)
+        prompts = [rng.integers(1, cfg.vocab_size,
+                                int(rng.integers(2, 6))).tolist()
+                   for _ in range(8)]
+        per_step = {"stream_attention": cfg.n_layers,
+                    "stream_matmul": 7 * cfg.n_layers}
+        _, tokens, plain_ms = serve(cfg, tree, prompts, 3, per_step,
+                                    label=" (unplaced)")
+        pts = place(tree, packed_tree_shardings(tree, mesh))
+        with use_mesh(mesh):
+            counts, placed_tokens, placed_ms = serve(
+                cfg, pts, prompts, 3, per_step,
+                label=" (placed by packed_tree_shardings)")
+        same = placed_tokens == tokens
+        print(f"distributed packed serve: tokens equal to the unplaced "
+              f"serve's: {same} (8/8 requests, 16 tokens each); ms per "
+              f"step placed {placed_ms:.3f} vs unplaced {plain_ms:.3f}")
+        if not same:
+            raise AssertionError("placed serve tokens differ")
+        figures["serve"] = {"ms_per_step": placed_ms,
+                            "unplaced_ms_per_step": plain_ms,
+                            "tokens_equal": same}
+        figures["launches"] = {"stream_matmul": counts["stream_matmul"],
+                               "stream_attention":
+                                   counts["stream_attention"],
+                               "pack_layout_fused": pack_launches}
+    finally:
+        dist.destroy_process_group()
+        store.cleanup()
+    if dist.is_initialized():
+        raise AssertionError("the process group outlived its phase")
+    return figures
+
+
+def dryrun_phase(measured: dict, *, cells=None) -> dict:
+    """The dry run (step 18 of the docstring), on the host.
+    ``measured``: the training phase's smollm-135m figures (ms per step,
+    peak GB, model TFLOP); ``cells``: (arch, shape name) pairs, every
+    production cell by default."""
+    from repro_torch.configs import ARCH_IDS, ShapeConfig, shape_cells
+    from repro_torch.launch.dryrun import run_cell, run_cells
+    from repro_torch.launch.mesh import AbstractMesh
+
+    out = ROOT / "artifacts" / "torch_dryrun"
+    shape = ShapeConfig("train_measured", TRAIN_S, TRAIN_B, "train")
+    r = run_cell("smollm-135m", "train_4k", False, out, shape=shape,
+                 mesh=AbstractMesh((1, 1), ("data", "model")),
+                 tag="measured")
+    rt = r["roofline"]
+    bound_ms = max(rt["compute_s"], rt["memory_s"],
+                   rt["collective_s"]) * 1e3
+    counted_gb = r["memory"]["peak_bytes"] / 1e9
+    ratio = measured["ms_per_step"] / bound_ms
+    print(f"dryrun smollm-135m measured cell (B={TRAIN_B} S={TRAIN_S}, one "
+          f"card): counted {r['cost']['flops'] / 1e12:.3f} TFLOP a step "
+          f"(train_flops {measured['model_tflop_per_step']:.3f}); counted "
+          f"bytes per card {counted_gb:.2f} GB (argument "
+          f"{r['memory']['argument_bytes'] / 1e9:.2f} + temp "
+          f"{r['memory']['temp_bytes'] / 1e9:.2f}) vs measured peak "
+          f"{measured['peak_gb']:.2f} GB; roofline bound {bound_ms:.2f} ms "
+          f"({rt['bottleneck']}: compute {rt['compute_s'] * 1e3:.2f} ms, "
+          f"memory {rt['memory_s'] * 1e3:.2f} ms over "
+          f"{r['cost']['bytes accessed'] / 1e9:.1f} GB counted) vs "
+          f"measured {measured['ms_per_step']:.2f} ms a step: "
+          f"{ratio:.2f}x the bound")
+    cells = cells or [(a, sc.name) for a in ARCH_IDS for sc in shape_cells(a)]
+    t0 = time.perf_counter()
+    results = run_cells(cells, False, out)
+    wall = time.perf_counter() - t0
+    bad = []
+    for res in results:
+        if res["status"] != "ok":
+            print(f"dryrun {res['arch']} x {res['shape']} x {res['mesh']}: "
+                  f"{res['status']} {res['error'][:300]}")
+            bad.append(res)
+            continue
+        rr = res["roofline"]
+        print(f"dryrun {res['arch']} x {res['shape']} x {res['mesh']}: "
+              f"{res['status']} peak {res['memory']['peak_bytes'] / 2**30:.2f}"
+              f" GiB/card (fits 80 GB: {res['memory']['fits_80gb']}) "
+              f"bottleneck={rr['bottleneck']} compute={rr['compute_s']:.3e} s "
+              f"memory={rr['memory_s']:.3e} s "
+              f"collective={rr['collective_s']:.3e} s")
+    print(f"dryrun: {len(results) - len(bad)}/{len(results)} cells ok on "
+          f"the (16, 16) mesh, counted in {wall:.1f} s")
+    if bad or len(results) != len(cells):
+        raise AssertionError(f"dry run: {len(bad)} cells not ok")
+    return {"measured_cell": {
+                "counted_tflop": r["cost"]["flops"] / 1e12,
+                "train_flops_tflop": measured["model_tflop_per_step"],
+                "counted_gb": counted_gb,
+                "measured_peak_gb": measured["peak_gb"],
+                "bound_ms": bound_ms, "bottleneck": rt["bottleneck"],
+                "measured_ms": measured["ms_per_step"],
+                "measured_over_bound": ratio},
+            "cells_ok": len(results), "count_wall_s": wall,
+            "bottlenecks": {f"{x['arch']}/{x['shape']}":
+                            x["roofline"]["bottleneck"] for x in results}}
+
+
 def run_train(dev, card: str) -> tuple[dict, int]:
     """The training phases; returns the ``train`` figures and the
     ``ssd_scan`` launches of the jamba gradient."""
@@ -3136,12 +3443,24 @@ def main() -> int:
     train, train_launches = run_train(dev, card)
     phases["train"] = time.perf_counter() - t0
     by_name["ssd_scan"]["launches"] += train_launches
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    distributed = distributed_phase(SMOLLM_135M, dev, card)
+    phases["distributed"] = time.perf_counter() - t0
+    for name, n in distributed["launches"].items():
+        by_name[name]["launches"] += n
+        by_name[name]["distributed_launches"] = n
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    distributed["dryrun"] = dryrun_phase(train["smollm_135m"])
+    phases["dryrun"] = time.perf_counter() - t0
     print("phases (wall s): " + ", ".join(f"{k} {v:.1f}"
                                           for k, v in phases.items()))
     print(json.dumps({"serve": served}))
     print(json.dumps({"checkpoint": ckpt}))
     print(json.dumps({"planner": planner}))
     print(json.dumps({"train": train}))
+    print(json.dumps({"distributed": distributed}))
     print(json.dumps({"kernels": kernels}))
     print(f"card: {card}")
     print(json.dumps({"ok": True, "device": {

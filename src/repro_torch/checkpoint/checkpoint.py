@@ -15,8 +15,11 @@ bf16 leaf is stored as its ``uint16`` bits with ``"dtype": "bfloat16"``
 in the manifest, as the reference stores it, and comes back as a bf16
 tensor through that view (no ``ml_dtypes``).  The reference's
 serialized ``treedef`` is written as ``null``: nothing reads it.
-Restores place every leaf on ``device`` (``"cuda"`` unless given);
-the reference's ``shardings`` placement waits for the launch tooling.
+Restores place every leaf on ``device`` (``"cuda"`` unless given), or
+with ``shardings`` (a tree of
+:class:`~repro_torch.launch.sharding.NamedSharding`) as a DTensor on its
+mesh: an elastic restore onto another topology.  A DTensor leaf is saved
+as its full value, so a placed tree saves byte-equal to an unplaced one.
 
 ``save_async`` snapshots every leaf to host memory synchronously and
 writes on a daemon thread; a failure there is raised by ``wait()``.
@@ -86,9 +89,12 @@ def _unskeletonize(skeleton: Any, leaves: list) -> Any:
 
 
 def _snapshot(x: Any) -> Any:
-    """A leaf copied to host memory now (the caller may mutate it later)."""
+    """A leaf copied to host memory now (the caller may mutate it later);
+    a DTensor's full value (every rank of its mesh takes part)."""
     if isinstance(x, torch.Tensor):
-        return x.detach().to("cpu", copy=True)
+        from ..models.shard_utils import local
+
+        return local(x.detach()).to("cpu", copy=True)
     return np.array(x)
 
 
@@ -214,11 +220,25 @@ class CheckpointManager:
             raise FileNotFoundError(f"no checkpoints under {self.root}")
         return self.root / f"step_{step:08d}"
 
-    def restore(self, like: Any, step: int | None = None, *,
+    def restore(self, like: Any, step: int | None = None,
+                shardings: Any | None = None, *,
                 device=None) -> tuple[Any, dict]:
         """Restore into the structure of ``like``, every leaf on
-        ``device`` (``"cuda"`` unless given).  Returns (tree, extra)."""
-        device = resolve_device(device)
+        ``device`` (``"cuda"`` unless given).  ``shardings``: optional
+        tree of :class:`~repro_torch.launch.sharding.NamedSharding` (the
+        same structure) — each leaf is then placed as a DTensor on its
+        sharding's mesh, on the mesh's device type (elastic restore onto
+        a different topology; ``device`` is not used).  Returns (tree,
+        extra)."""
+        shard_leaves = None
+        if shardings is not None:
+            from ..launch.sharding import place_tensor
+
+            shard_leaves = _flatten(shardings)
+            if len(shard_leaves) != len(_flatten(like)):
+                raise ValueError("tree/sharding structure mismatch")
+        else:
+            device = resolve_device(device)
         d = self._step_dir(step)
         manifest = json.loads((d / "manifest.json").read_text())
         like_leaves = _flatten(like)
@@ -234,7 +254,12 @@ class CheckpointManager:
                 raise ValueError(
                     f"leaf {manifest['paths'][i]}: checkpoint shape "
                     f"{tuple(leaf.shape)} != target {want_shape}")
-            out.append(leaf.to(device))
+            if shard_leaves is None:
+                out.append(leaf.to(device))
+            else:
+                sharding = shard_leaves[i]
+                out.append(place_tensor(leaf.to(sharding.mesh.device_type),
+                                        sharding))
         return _unflatten(like, out), manifest["extra"]
 
     # ------------------------------------------------------------------

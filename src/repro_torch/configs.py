@@ -2,7 +2,8 @@
 
 Own copy of ``src/repro/configs/base.py`` (:class:`MoEConfig`,
 :class:`SSMConfig`, :class:`ModelConfig` with its layer-interleave
-helpers and :meth:`ModelConfig.reduced`, :class:`ShapeConfig` and
+helpers, :meth:`ModelConfig.reduced` and :meth:`ModelConfig.with_tp`,
+:class:`ShapeConfig` and
 :data:`SHAPES`), of :func:`shape_cells`
 (``src/repro/configs/__init__.py:35-42``) and of the reference's ten
 config modules: ``smollm_135m``, ``mistral_large_123b``,
@@ -14,6 +15,7 @@ reference's.
 from __future__ import annotations
 
 import dataclasses
+import math
 
 
 @dataclasses.dataclass(frozen=True)
@@ -199,6 +201,31 @@ class ModelConfig:
             changes["mrope_sections"] = (t, h, hd // 2 - t - h)
         changes.update(overrides)
         return dataclasses.replace(self, **changes)
+
+    def with_tp(self, tp: int) -> "ModelConfig":
+        """Adjust for tensor parallelism (``src/repro/configs/base.py:196``):
+
+        * replicate KV heads to a multiple of the model axis when
+          n_kv_heads doesn't divide it (standard GQA TP practice);
+        * pad the vocab to a multiple of the axis (Megatron-style) so
+          the logits / CE path shards.
+
+        The model function is unchanged (padded logit rows simply learn
+        to be improbable; labels never reference them)."""
+        out = self
+        pad = (-out.vocab_size) % tp
+        if pad:
+            out = dataclasses.replace(out, vocab_size=out.vocab_size + pad)
+        if out.n_kv_heads == 0 or out.n_kv_heads % tp == 0:
+            return out
+        reps = -(-tp // out.n_kv_heads)        # ceil
+        new_kv = out.n_kv_heads * reps
+        if new_kv % tp and tp % new_kv:
+            # fall back: replicate to lcm so the axis divides or is unused
+            new_kv = out.n_kv_heads * tp // math.gcd(out.n_kv_heads, tp)
+        if out.n_heads % new_kv:
+            return out                         # keep GQA grouping legal
+        return dataclasses.replace(out, n_kv_heads=new_kv)
 
 
 #: smollm-135m [dense] — hf:HuggingFaceTB/SmolLM-135M (llama-arch small):

@@ -19,6 +19,7 @@ from __future__ import annotations
 import torch
 
 from .layers import apply_rope, dense_init
+from .shard_utils import gather_grad, is_dtensor, split_heads, unshard
 
 NEG_INF = -1e30
 
@@ -49,18 +50,32 @@ def _project(cfg, p: dict, x: torch.Tensor, name: str) -> torch.Tensor:
     return y
 
 
+def _gather_gqa_heads(q, k, v):
+    """Explicit gather: DTensor cannot regroup a sharded head dim into
+    (Hkv, rep) unless Hkv divides over its ranks, which GQA's few KV
+    heads often do not; placed GQA attention gathers the head dim of q,
+    k and v first (identity on plain tensors and without GQA)."""
+    if is_dtensor(q) and k.shape[2] != q.shape[2]:
+        return unshard(q, 2), unshard(k, 2), unshard(v, 2)
+    return q, k, v
+
+
 def repeat_kv(kv: torch.Tensor, n_heads: int) -> torch.Tensor:
     """(B, S, Hkv, hd) -> (B, S, H, hd) by GQA group replication."""
     hkv = kv.shape[2]
     if hkv == n_heads:
         return kv
-    return torch.repeat_interleave(kv, n_heads // hkv, dim=2)
+    # placed: the backward of the repeat regroups the gradient's heads,
+    # which DTensor refuses on a sharded head dim (see _gather_gqa_heads)
+    return gather_grad(torch.repeat_interleave(kv, n_heads // hkv, dim=2),
+                       2)
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, q_chunk: int = 1024,
                     kv_chunk: int = 1024) -> torch.Tensor:
     """q: (B, Sq, H, hd); k/v: (B, Skv, Hkv, hd).  Returns (B, Sq, H, hd)."""
+    q, k, v = _gather_gqa_heads(q, k, v)
     b, sq, h, hd = q.shape
     skv = k.shape[1]
     k = repeat_kv(k, h)
@@ -106,6 +121,7 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
     """q: (B, 1, H, hd); caches: (B, Smax, Hkv, hd); pos: (B,) per-row
     positions.  K/V are cast to the query dtype, scores and softmax are
     f32, the V contraction is f32, the output is in the query dtype."""
+    q, k_cache, v_cache = _gather_gqa_heads(q, k_cache, v_cache)
     b, _, h, hd = q.shape
     smax = k_cache.shape[1]
     kc = repeat_kv(k_cache, h).to(q.dtype)
@@ -156,10 +172,10 @@ def attention_block(cfg, p: dict, x: torch.Tensor, positions, inv_freq,
     ``kv_override``, the encoder memory's K/V).  x: (B, S, d)."""
     b, s, _ = x.shape
     h, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-    q = _project(cfg, p, x, "q").reshape(b, s, h, hd)
+    q = split_heads(_project(cfg, p, x, "q"), b, s, h, hd)
     if kv_override is None:
-        k = _project(cfg, p, x, "k").reshape(b, s, hkv, hd)
-        v = _project(cfg, p, x, "v").reshape(b, s, hkv, hd)
+        k = split_heads(_project(cfg, p, x, "k"), b, s, hkv, hd)
+        v = split_heads(_project(cfg, p, x, "v"), b, s, hkv, hd)
         q = apply_rope(q, positions, inv_freq, cfg.mrope_sections)
         k = apply_rope(k, positions, inv_freq, cfg.mrope_sections)
     else:
@@ -180,9 +196,9 @@ def attention_decode_block(cfg, p: dict, x: torch.Tensor,
     Returns the block's output (B, 1, d)."""
     b = x.shape[0]
     h, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-    q = _project(cfg, p, x, "q").reshape(b, 1, h, hd)
-    k = _project(cfg, p, x, "k").reshape(b, 1, hkv, hd)
-    v = _project(cfg, p, x, "v").reshape(b, 1, hkv, hd)
+    q = split_heads(_project(cfg, p, x, "q"), b, 1, h, hd)
+    k = split_heads(_project(cfg, p, x, "k"), b, 1, hkv, hd)
+    v = split_heads(_project(cfg, p, x, "v"), b, 1, hkv, hd)
     pos_b = pos[:, None]
     q = apply_rope(q, pos_b, inv_freq, cfg.mrope_sections)
     k = apply_rope(k, pos_b, inv_freq, cfg.mrope_sections)
@@ -190,10 +206,19 @@ def attention_decode_block(cfg, p: dict, x: torch.Tensor,
     smax = k_cache.shape[1]
     idx = pos.to(torch.int64).clamp(max=smax - 1)
     keep = (pos < smax)[:, None, None]
-    k_cache[rows, idx] = torch.where(keep, k[:, 0].to(k_cache.dtype),
-                                     k_cache[rows, idx])
-    v_cache[rows, idx] = torch.where(keep, v[:, 0].to(v_cache.dtype),
-                                     v_cache[rows, idx])
+    if is_dtensor(k_cache):
+        # explicit: DTensor has no rule for an in-place index_put_ on a
+        # sharded cache, so a placed cache takes the write as a masked
+        # select over the whole cache, copied back into its shards
+        hit = (torch.arange(smax, device=pos.device)[None] == idx[:, None])
+        hit = (hit & keep[:, :, 0])[:, :, None, None]          # (B, S, 1, 1)
+        k_cache.copy_(torch.where(hit, k.to(k_cache.dtype), k_cache))
+        v_cache.copy_(torch.where(hit, v.to(v_cache.dtype), v_cache))
+    else:
+        k_cache[rows, idx] = torch.where(keep, k[:, 0].to(k_cache.dtype),
+                                         k_cache[rows, idx])
+        v_cache[rows, idx] = torch.where(keep, v[:, 0].to(v_cache.dtype),
+                                         v_cache[rows, idx])
     out = decode_attention(q, k_cache, v_cache, pos)
     return _project(cfg, p, out.reshape(b, 1, h * hd), "o")
 
@@ -203,8 +228,8 @@ def cross_kv(cfg, p: dict, memory: torch.Tensor
     """Encoder memory (B, ctx, d) to cross K/V, each (B, ctx, Hkv, hd)."""
     b, s, _ = memory.shape
     hkv, hd = cfg.n_kv_heads, cfg.head_dim
-    k = _project(cfg, p, memory, "k").reshape(b, s, hkv, hd)
-    v = _project(cfg, p, memory, "v").reshape(b, s, hkv, hd)
+    k = split_heads(_project(cfg, p, memory, "k"), b, s, hkv, hd)
+    v = split_heads(_project(cfg, p, memory, "v"), b, s, hkv, hd)
     return k, v
 
 

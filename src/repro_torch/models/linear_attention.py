@@ -19,6 +19,8 @@ from __future__ import annotations
 
 import torch
 
+from .shard_utils import dp_spec, maybe_shard
+
 
 def _step(s, qt, kt, vt, wt, u, rwkv_mode: bool):
     kv = kt[..., :, None] * vt[..., None, :]                  # (B,H,dk,dv)
@@ -59,6 +61,9 @@ def recurrent_scan(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         out, s = _step(s, q[:, i].to(torch.float32),
                        k[:, i].to(torch.float32), v[:, i].to(torch.float32),
                        w[:, i], u, rwkv_mode)
+        # keep the carried state head-sharded (the reference constrains
+        # it once per mini-chunk; here once per token, same placement)
+        s = maybe_shard(s, dp_spec(), "model", None, None)
         outs.append(out)
     out = torch.stack(outs, dim=1)[:, :t]
     return out.to(q.dtype), s

@@ -16,7 +16,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from ..kernels.linear_scan import ssd_scan
+from ..kernels.linear_scan import ssd_scan, ssd_scan_plain
 from .layers import dense_init
 from .linear_attention import recurrent_step
 
@@ -80,8 +80,11 @@ def apply_mamba(cfg, p: dict, x: torch.Tensor,
     b, t, _ = x.shape
     di = cfg.ssm.expand * cfg.d_model
     xh, z, bk, cq, v, log_a = _ssm_inputs(cfg, p, x)
-    out, state = ssd_scan(cq, bk, v, log_a, state0=state0,
-                          return_state=True)                  # (B,T,H,hd)
+    # meta tensors (the dry run's counted runs) take the kernel's plain
+    # version: the kernel's wrapper runs on cpu or cuda only
+    scan = ssd_scan_plain if cq.is_meta else ssd_scan
+    out, state = scan(cq, bk, v, log_a, state0=state0,
+                      return_state=True)                      # (B,T,H,hd)
     out = out + xh * p["d_skip"][None, None, :, None].to(xh.dtype)
     y = (out.reshape(b, t, di) * F.silu(z)) @ p["w_out"]
     return y, state

@@ -36,6 +36,7 @@ from . import rwkv as rwkv_mod
 from .layers import apply_mlp, apply_norm, rope_freqs, sinusoidal_positions
 from .moe import apply_moe
 from .params import init_params
+from .shard_utils import dp_spec, maybe_shard, unshard
 from .transformer import (
     encoder_config,
     forward_stack,
@@ -60,14 +61,22 @@ class Model:
     def _embed(self, params: dict, tokens: torch.Tensor) -> torch.Tensor:
         emb = params["embed"]
         x = emb[tokens.to(device=emb.device, dtype=torch.int64)]
-        return x * torch.tensor(self.cfg.d_model ** 0.5, dtype=x.dtype,
-                                device=x.device)
+        x = x * torch.tensor(self.cfg.d_model ** 0.5, dtype=x.dtype,
+                             device=x.device)
+        if x.ndim == 3:
+            x = maybe_shard(x, dp_spec(), None, None)
+        return x
 
     def _logits(self, params: dict, x: torch.Tensor) -> torch.Tensor:
         x = apply_norm(self.cfg, params["final_norm"], x)
         if self.cfg.tie_embeddings:
-            return x @ params["embed"].T
-        return x @ params["unembed"]
+            logits = x @ params["embed"].T
+        else:
+            logits = x @ params["unembed"]
+        # vocab-parallel logits: keep V sharded over 'model' end to end
+        if logits.ndim == 3:
+            return maybe_shard(logits, dp_spec(), None, "model")
+        return maybe_shard(logits, dp_spec(), "model")
 
     def encode(self, params: dict, frames: torch.Tensor) -> torch.Tensor:
         """Whisper's encoder: frame embeddings (B, n_ctx, d) (the stub of
@@ -114,7 +123,10 @@ class Model:
         with ``batch["loss_mask"]`` (B, S) the CE is masked and divided
         by the mask's sum (at least 1), else by B * S."""
         logits, aux, _ = self.forward(params, batch)
-        logits = logits.to(torch.float32)
+        # explicit gather: DTensor's rule for a gather along a sharded
+        # vocab dim fails (its masked partial reads a 2-D mask on 3-D
+        # logits), so vocab-parallel logits are gathered whole here
+        logits = unshard(logits, -1).to(torch.float32)
         labels = batch["labels"].to(device=logits.device, dtype=torch.int64)
         lse = torch.logsumexp(logits, dim=-1)
         label_logit = torch.gather(logits, -1, labels[..., None])[..., 0]

@@ -21,6 +21,7 @@ import torch
 import torch.nn.functional as F
 
 from .layers import activation, apply_mlp, dense_init, init_mlp
+from .shard_utils import dp_spec, local_rows, maybe_shard, rows_like, unshard
 
 
 def init_moe(gen: torch.Generator, cfg, *, lead: tuple = (),
@@ -93,16 +94,40 @@ def apply_moe(cfg, p: dict, x: torch.Tensor
     e_flat, slot_c, keep, cap = dispatch(cfg, choice, s)
     xin = x[:, :, None].expand(b, s, k, d).reshape(b, s * k, d)
     xin = (xin * keep[..., None]).to(x.dtype)
-    rows = torch.arange(b, device=x.device)[:, None].expand(b, s * k)
-    buf = torch.zeros((b, e, cap + 1, d), dtype=x.dtype, device=x.device)
-    buf.index_put_((rows, e_flat, slot_c), xin, accumulate=True)
-    buf = buf[:, :, :cap]                                     # (B, E, C, d)
-    g = torch.einsum("becd,edf->becf", buf, p["w_gate"])
-    u = torch.einsum("becd,edf->becf", buf, p["w_up"])
+    xin = maybe_shard(xin, dp_spec(), None, None)
+    # each group (batch row) fills its own expert buffers, so under a
+    # mesh every rank dispatches and combines its own rows of the
+    # DP-sharded batch with no collective: DTensor has no rule for an
+    # integer-indexed scatter-add or gather, so ``local_rows`` hands the
+    # rank's rows over as plain tensors and ``rows_like`` places the
+    # result as ``xin`` is placed (both the identity without a mesh)
+    e_loc = local_rows(maybe_shard(e_flat, dp_spec(), None))
+    s_loc = local_rows(maybe_shard(slot_c, dp_spec(), None))
+    x_loc = local_rows(xin)
+    bl = x_loc.shape[0]
+    rows = torch.arange(bl, device=x_loc.device)[:, None].expand(bl, s * k)
+    buf = torch.zeros((bl, e, cap + 1, d), dtype=x.dtype,
+                      device=x_loc.device)
+    buf.index_put_((rows, e_loc, s_loc), x_loc, accumulate=True)
+    buf = rows_like(buf[:, :, :cap], xin)                     # (B, E, C, d)
+    buf = maybe_shard(buf, dp_spec(), "model", None, None)
+    # FSDP gathers an expert matrix's 'data'-sharded dim before its
+    # product (explicit: DTensor's einsum fails on a product whose
+    # output dim is sharded); the expert dim stays on 'model'
+    w_gate, w_up, w_down = (unshard(p[n], -2, -1)
+                            for n in ("w_gate", "w_up", "w_down"))
+    g = torch.einsum("becd,edf->becf", buf, w_gate)
+    u = torch.einsum("becd,edf->becf", buf, w_up)
     h = activation(cfg.act, g) * u
-    out_buf = F.pad(torch.einsum("becf,efd->becd", h, p["w_down"]),
+    h = maybe_shard(h, dp_spec(), "model", None, None)
+    out_buf = F.pad(torch.einsum("becf,efd->becd", h, w_down),
                     (0, 0, 0, 1))                             # (B, E, C+1, d)
-    y_flat = out_buf[rows, e_flat, slot_c]                    # (B, S*k, d)
+    # explicit gather: a row's combine reads every expert, so the expert
+    # outputs are gathered over 'model' (the rows stay on their ranks)
+    out_buf = unshard(maybe_shard(out_buf, dp_spec(), "model", None, None),
+                      1)
+    y_flat = rows_like(local_rows(out_buf)[rows, e_loc, s_loc],
+                       xin)                                   # (B, S*k, d)
     w = (gates.reshape(b, s * k) * keep).to(x.dtype)
     y = (y_flat * w[..., None]).reshape(b, s, k, d).sum(dim=2)
     if moe.dense_residual_ff:

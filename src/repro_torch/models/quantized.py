@@ -106,6 +106,7 @@ def packed_decode_step(cfg, pp, state: dict, tokens: torch.Tensor, *,
     if kv_attention not in ("stream", "dense"):
         raise ValueError(
             f"kv_attention must be 'stream' or 'dense'; got {kv_attention!r}")
+    pp = pp.gathered()              # a placed tree: its whole leaves
     use_stream = weights == "stream" or (weights == "auto" and not pp.packed)
     if weights == "packed" and not pp.packed:
         raise ValueError(

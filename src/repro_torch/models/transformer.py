@@ -44,6 +44,7 @@ from . import mamba as mam
 from . import moe as moe_mod
 from . import rwkv as rwkv_mod
 from .layers import apply_mlp, apply_norm, init_mlp, init_norm, rope_freqs
+from .shard_utils import split_heads
 
 
 @dataclasses.dataclass(frozen=True)
@@ -127,10 +128,10 @@ def _sublayer_forward(cfg, spec: SubLayerSpec, p: dict, x: torch.Tensor,
     if spec.mixer == "attn":
         b, s, _ = h.shape
         if collect_cache:
-            k = attn._project(cfg, p["attn"], h, "k").reshape(
-                b, s, cfg.n_kv_heads, cfg.head_dim)
-            v = attn._project(cfg, p["attn"], h, "v").reshape(
-                b, s, cfg.n_kv_heads, cfg.head_dim)
+            k = split_heads(attn._project(cfg, p["attn"], h, "k"),
+                            b, s, cfg.n_kv_heads, cfg.head_dim)
+            v = split_heads(attn._project(cfg, p["attn"], h, "v"),
+                            b, s, cfg.n_kv_heads, cfg.head_dim)
             k = attn.apply_rope(k, positions, inv_freq, cfg.mrope_sections)
             cache = (k, v)
         x = x + attn.attention_block(cfg, p["attn"], h, positions, inv_freq,

@@ -63,3 +63,18 @@ def unflatten(like: Any, leaves: list) -> Any:
             return type(node)(build(v) for v in node)
         return next(it)
     return build(like)
+
+
+def tree_map_with_path(fn: Callable, tree: Any, prefix: tuple = ()) -> Any:
+    """``fn(path, leaf)`` over every leaf, keeping the structure; ``path``
+    is the tuple of keys and list indices (as strings) down to the leaf,
+    the keys of ``jax.tree_util.tree_map_with_path``."""
+    if tree is None:
+        return None
+    if isinstance(tree, dict):
+        return {k: tree_map_with_path(fn, v, prefix + (str(k),))
+                for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(tree_map_with_path(fn, v, prefix + (str(i),))
+                          for i, v in enumerate(tree))
+    return fn(prefix, tree)

@@ -1,5 +1,5 @@
-"""repro_torch.runtime: the fault-tolerant train loop (port of
-``src/repro/runtime``)."""
+"""repro_torch.runtime: the fault-tolerant train loop, elastic
+resharding and pipeline stages (port of ``src/repro/runtime``)."""
 from .train_loop import (
     TrainLoopConfig,
     TrainReport,

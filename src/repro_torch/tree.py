@@ -191,6 +191,27 @@ class PackedTree:
     def device(self) -> torch.device:
         return self.streams.device
 
+    def gathered(self) -> "PackedTree":
+        """This tree, every leaf a plain tensor on this rank.  The packed
+        decode step's kernels read whole layer streams and kernel views
+        through ctypes, so a placed tree (``launch.sharding.place``) is
+        served whole: the first call gathers each placed leaf (an
+        explicit gather; on a one-card mesh a view, no copy) and the
+        tree keeps the whole values in place of its shards, so no rank
+        holds both."""
+        from .models.shard_utils import is_dtensor, local
+        from .pytree import flatten, tree_map
+
+        leaves = [self.streams, *self.packed.values(),
+                  *self.scales.values(), *flatten(self.other)]
+        if any(is_dtensor(t) for t in leaves):
+            self.packed = {k: local(v) for k, v in self.packed.items()}
+            self.scales = {k: local(v) for k, v in self.scales.items()}
+            self.other = tree_map(local, self.other)
+            self.streams = local(self.streams)
+            self._words = self._host_words = None
+        return self
+
     @property
     def spec(self) -> QuantSpec:
         return self.manifest.spec

@@ -1260,3 +1260,109 @@ def test_schedule_many_pool_after_cuda_init_equals_serial(cuda,
                iris.schedule_many(probs * 2, cache=pooled, workers=2)]
     assert got == want
     assert pooled.stats == serial.stats
+
+
+# ----------------------------------------------------------------------
+# the distributed substrate on one card: each in a fresh process, so the
+# pytest process never holds a process group
+# ----------------------------------------------------------------------
+_ONE_CARD_GROUP = r'''
+import sys, tempfile
+import numpy as np
+import torch
+import torch.distributed as dist
+from repro_torch.configs import SMOLLM_135M
+from repro_torch.launch.mesh import make_debug_mesh
+from repro_torch.launch import sharding as sh
+from repro_torch.models.shard_utils import local, use_mesh
+
+dev = torch.device("cuda")
+tmp = tempfile.mkdtemp()
+dist.init_process_group("nccl", store=dist.FileStore(tmp + "/store", 1),
+                        rank=0, world_size=1)
+mesh = make_debug_mesh((1, 1), ("data", "model"), device_type="cuda")
+if sys.argv[1] == "train":
+    from repro_torch.launch.steps import build_train_step, init_train_state
+    cfg = SMOLLM_135M.reduced(n_layers=2, d_model=64, n_heads=4,
+                              n_kv_heads=2, d_ff=128, vocab_size=64,
+                              head_dim=16, dtype="float32")
+    state = init_train_state(cfg, torch.Generator(device=dev)
+                             .manual_seed(0), dev)
+    rng = np.random.default_rng(0)
+    toks = torch.from_numpy(rng.integers(0, 64, (4, 16)).astype(np.int32))
+    batch = {"tokens": toks.to(dev), "labels": toks.roll(-1, 1).to(dev)}
+    step = build_train_step(cfg)
+    s, want = state, []
+    for _ in range(2):
+        s, m = step(s, batch)
+        want.append(float(m["loss"]))
+    ps = sh.param_shardings(state["params"], mesh, fsdp=True)
+    s = sh.place(state, {"params": ps, "opt": sh.opt_state_shardings(
+        state["opt"], ps, mesh)})
+    b = sh.place(batch, sh.batch_sharding(batch, mesh))
+    got = []
+    with use_mesh(mesh):
+        for _ in range(2):
+            s, m = step(s, b)
+            got.append(float(local(m["loss"])))
+    np.testing.assert_allclose(got, want, rtol=1e-5)
+else:
+    from repro_torch.engine import (Engine, EngineConfig, EngineRequest,
+                                    PackedAdapter)
+    from repro_torch.models.params import init_params
+    from repro_torch.quant import QuantSpec
+    from repro_torch.tree import pack_tree
+    cfg = SMOLLM_135M.reduced()
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(0),
+                         device=dev)
+    tree = pack_tree(cfg, params, QuantSpec(bits=3, group_size=32),
+                     device=dev)
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(1, cfg.vocab_size, 4).tolist()
+               for _ in range(6)]
+
+    def serve(t):
+        eng = Engine(PackedAdapter(cfg, t, kv="packed", kv_bits=3),
+                     EngineConfig(batch_size=4, max_seq=64,
+                                  max_backlog=None))
+        reqs = [EngineRequest(uid=i, prompt=p, max_new_tokens=8)
+                for i, p in enumerate(prompts)]
+        for r in reqs:
+            eng.submit(r)
+        assert eng.run_until_drained(max_steps=500).completed == 6
+        return [r.generated for r in reqs]
+    want = serve(tree)
+    with use_mesh(mesh):
+        got = serve(sh.place(tree, sh.packed_tree_shardings(tree, mesh)))
+    assert got == want, (got, want)
+dist.destroy_process_group()
+print("SUBPROCESS_OK")
+'''
+
+
+def _one_card(mode: str) -> None:
+    import os
+    import pathlib
+    import subprocess
+    import sys
+
+    root = pathlib.Path(__file__).resolve().parents[1]
+    out = subprocess.run(
+        [sys.executable, "-c", _ONE_CARD_GROUP, mode], capture_output=True,
+        text=True, timeout=600,
+        env=dict(os.environ, PYTHONPATH=str(root / "src")))
+    assert out.returncode == 0 and "SUBPROCESS_OK" in out.stdout, \
+        out.stderr[-3000:]
+
+
+def test_sharded_train_step_on_one_card_equals_unsharded(cuda):
+    """Reduced smollm (f32) placed by the rules on a (1, 1) NCCL mesh:
+    two train steps' losses within 1e-5 of the unplaced steps'."""
+    _one_card("train")
+
+
+def test_placed_packed_serve_on_one_card_keeps_tokens(cuda):
+    """A reduced int3 smollm tree placed by ``packed_tree_shardings``
+    serves through ``Engine(PackedAdapter)`` with the unplaced tree's
+    greedy tokens (the kernels on the card)."""
+    _one_card("serve")
