@@ -210,8 +210,11 @@
     placed train state onto a (1,) mesh, bit-equal, with ms and GB;
     ``CheckpointManager.restore(..., shardings=)`` of a train checkpoint
     onto the mesh, bit-equal; ``pipeline_forward`` with one stage ==
-    the plain stage loop.  The group is destroyed at the end of the
-    phase.
+    the plain stage loop; the jamba train step of step 15's size placed
+    on the mesh against the unplaced step, 2 steps each, losses within
+    ``SHARDED_LOSS_RTOL``, the placed Mamba scans through the
+    ``ssd_scan`` kernel (28 launches, counted into the ``kernels``
+    line).  The group is destroyed at the end of the phase.
 18. The dry run (:func:`dryrun_phase`): ``launch.dryrun.run_cell`` of
     smollm-135m at the measured training shape (B=8, S=1024, one card):
     counted FLOPs beside ``train_flops``, counted bytes per card
@@ -220,7 +223,25 @@
     (arch x shape) cell of ``shape_cells`` on the (16, 16) production
     mesh, counted on the host over a process pool, one line a cell; any
     cell not ``ok`` fails the run.
-19. Prints each phase's wall seconds, one JSON ``serve`` line (ms per
+19. The examples (:func:`examples_phase`), each through its ``main`` on
+    the card: ``quickstart`` (its ``cuda`` decode one
+    ``decode_layout_fused`` launch, its tiny training run's loss
+    dropping); ``packed_serving`` at ``--bits`` 8, 4 and 3 (per width:
+    ``api.pack_tree`` one ``pack_layout_fused`` launch a layer, the
+    restore one ``decode_layout_fused`` launch a layer and bit-identical,
+    7 ``packed_matmul`` (int8, int4) or ``stream_matmul`` (int3) launches
+    a layer a step; the packed tokens equal to the plain versions' on
+    the card, printed beside the dense ``Model.decode_step``'s tokens);
+    ``train_lm`` at its small preset's 300 steps (the example asserts
+    its learning bar), then its ``--preset full`` recipe (smollm-135m at
+    full width and depth) for 30 steps: finite losses, ms per step, peak
+    GB.  Launches counted into the ``kernels`` line.
+20. ``fp8 kv`` (:func:`fp8_kv_phase`): smollm-135m at full width and
+    depth, bf16, batch 4, 16 greedy dense decode steps from the same
+    parameters with a bf16 and a float8_e5m2 cache: logits within the
+    reference's bar (``0.35 max|bf16| + 0.5``), the fp8 cache exactly
+    half the bytes, ms per step of each.
+21. Prints each phase's wall seconds, one JSON ``serve`` line (ms per
     step of the packed serves of stablelm-3b and qwen2-vl-2b, and of the
     unquantized serves of moonshot, rwkv6-3b and whisper-medium), one
     JSON ``checkpoint`` line (the checkpoint phase's figures), one JSON
@@ -236,9 +257,13 @@
     include stablelm's 64, qwen2-vl's 56 and the planner's 3, as
     ``decode_layout_fused``'s the planner's 3; ``ssd_scan``'s the
     training phase's; ``stream_matmul``, ``stream_attention`` and
-    ``pack_layout_fused``'s the distributed phase's), one JSON
+    ``pack_layout_fused``'s the distributed phase's, ``ssd_scan``'s its
+    placed jamba steps'; ``stream_matmul``, ``packed_matmul``,
+    ``pack_layout_fused`` and ``decode_layout_fused``'s the examples'
+    under ``examples_launches``), one JSON
     ``distributed`` line (the distributed and dry-run phases' figures),
-    the card line again, and last ``{"ok": true,
+    one JSON ``examples`` line (the examples' and the fp8 case's
+    figures), the card line again, and last ``{"ok": true,
     "device": {...}}``.
 
 Any failed check raises, and the script exits non-zero without the last
@@ -247,6 +272,7 @@ repository, it cannot import the port and fails.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import pathlib
 import subprocess
@@ -3072,6 +3098,7 @@ def train_jamba_grad(dev) -> tuple[dict, int]:
 #: products, so only reduction orders may differ)
 SHARDED_LOSS_RTOL = 1e-3
 DIST_TRAIN_STEPS = 3
+JAMBA_DIST_STEPS = 2
 
 
 def _group(dev):
@@ -3269,16 +3296,92 @@ def distributed_phase(cfg, dev, card: str) -> dict:
         figures["serve"] = {"ms_per_step": placed_ms,
                             "unplaced_ms_per_step": plain_ms,
                             "tokens_equal": same}
+        del tree, pts
+        figures["jamba_train"], scan_launches = placed_jamba_step(mesh, dev)
         figures["launches"] = {"stream_matmul": counts["stream_matmul"],
                                "stream_attention":
                                    counts["stream_attention"],
-                               "pack_layout_fused": pack_launches}
+                               "pack_layout_fused": pack_launches,
+                               "ssd_scan": scan_launches}
     finally:
         dist.destroy_process_group()
         store.cleanup()
     if dist.is_initialized():
         raise AssertionError("the process group outlived its phase")
     return figures
+
+
+def placed_jamba_step(mesh, dev) -> tuple[dict, int]:
+    """The jamba train step placed on ``mesh`` against the unplaced step,
+    from one state and batch: :func:`train_jamba_grad`'s size (f32,
+    ``moe=None``, one period of 7 Mamba sublayers and an attention one,
+    d_model 128, B=2, T=256), ``JAMBA_DIST_STEPS`` steps each.  Returns
+    the figures and the ``ssd_scan`` launches of the placed steps (the
+    Mamba scans, fed this rank's rows as plain tensors, run the kernel:
+    7 in a step's forward and 7 in its remat recompute)."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs import JAMBA_1_5_LARGE
+    from repro_torch.kernels import linear_scan as ls
+    from repro_torch.launch.sharding import (
+        batch_sharding,
+        opt_state_shardings,
+        param_shardings,
+        place,
+    )
+    from repro_torch.launch.steps import build_train_step, init_train_state
+    from repro_torch.models.shard_utils import local, use_mesh
+
+    cfg = dataclasses.replace(JAMBA_1_5_LARGE.reduced(moe=None, n_layers=8),
+                              dtype="float32")
+    state = init_train_state(cfg, torch.Generator(device=dev)
+                             .manual_seed(2), dev)
+    toks = np.random.default_rng(5).integers(0, cfg.vocab_size, (2, 257))
+    batch = {"tokens": torch.from_numpy(toks[:, :-1]).to(dev),
+             "labels": torch.from_numpy(toks[:, 1:]).to(dev)}
+    step = build_train_step(cfg)
+
+    def run(st, b, placed: bool):
+        losses, ms = [], []
+        for _ in range(JAMBA_DIST_STEPS):
+            _sync(dev)
+            t0 = time.perf_counter()
+            with use_mesh(mesh) if placed else contextlib.nullcontext():
+                st, m = step(st, b)
+            _sync(dev)
+            ms.append((time.perf_counter() - t0) * 1e3)
+            losses.append(float(local(m["loss"])))
+        return losses, ms
+
+    plain_losses, plain_ms = run(state, batch, False)
+    ps_ = param_shardings(state["params"], mesh, fsdp=True)
+    placed = place(state, {"params": ps_, "opt": opt_state_shardings(
+        state["opt"], ps_, mesh)})
+    ls.launches = 0
+    losses, ms = run(placed, place(batch, batch_sharding(batch, mesh)), True)
+    launches = ls.launches
+    err = max(abs(a - b) for a, b in zip(losses, plain_losses))
+    rel = err / max(abs(b) for b in plain_losses)
+    print(f"distributed train jamba ({cfg.name} reduced, moe=None, "
+          f"n_layers=8, f32, B=2 T=256, {JAMBA_DIST_STEPS} steps, placed "
+          f"on the (1, 1) mesh): losses {[round(x, 6) for x in losses]} vs "
+          f"unplaced {[round(x, 6) for x in plain_losses]}, max |diff| "
+          f"{err:.3g} (rel {rel:.3g}, gate {SHARDED_LOSS_RTOL}); ssd_scan "
+          f"launches {launches} in the placed steps (the scan's autograd "
+          f"Function, the kernel forward); ms per step placed "
+          f"{[round(x, 1) for x in ms]} vs unplaced "
+          f"{[round(x, 1) for x in plain_ms]}")
+    want = 14 * JAMBA_DIST_STEPS if dev.type == "cuda" else 0
+    if not rel <= SHARDED_LOSS_RTOL or not np.isfinite(losses).all() \
+            or launches != want:
+        raise AssertionError(f"placed jamba step: losses {losses} against "
+                             f"{plain_losses}, {launches} ssd_scan launches")
+    return ({"losses": losses, "unplaced_losses": plain_losses,
+             "max_abs_diff": err, "ms_per_step": ms,
+             "unplaced_ms_per_step": plain_ms,
+             "ssd_scan_launches": launches}, launches)
 
 
 def dryrun_phase(measured: dict, *, cells=None) -> dict:
@@ -3345,6 +3448,240 @@ def dryrun_phase(measured: dict, *, cells=None) -> dict:
             "cells_ok": len(results), "count_wall_s": wall,
             "bottlenecks": {f"{x['arch']}/{x['shape']}":
                             x["roofline"]["bottleneck"] for x in results}}
+
+
+#: packed_serving's widths in the examples phase: its default int8 and
+#: int4 (lane-packed, ``packed_matmul``), int3 (stream-direct,
+#: ``stream_matmul``)
+EXAMPLE_BITS = (8, 4, 3)
+#: train_lm's ``--preset full`` (smollm-135m at full width and depth),
+#: steps on the card at the example's seq 128, batch 8
+FULL_PRESET_STEPS = 30
+#: the fp8 KV case: smollm-135m, batch, greedy dense decode steps
+FP8_B, FP8_STEPS = 4, 16
+
+
+def _launch_counts() -> dict:
+    from repro_torch.kernels import layout_decode as ld
+    from repro_torch.kernels import layout_pack as lp
+    from repro_torch.kernels import packed_matmul as pm
+    from repro_torch.kernels import stream_matmul as sm
+
+    return {"stream_matmul": sm.launches, "packed_matmul": pm.launches,
+            "pack_layout_fused": lp.launches,
+            "decode_layout_fused": ld.fused_launches}
+
+
+def _zero_launches() -> None:
+    from repro_torch.kernels import layout_decode as ld
+    from repro_torch.kernels import layout_pack as lp
+    from repro_torch.kernels import packed_matmul as pm
+    from repro_torch.kernels import stream_matmul as sm
+
+    sm.launches = pm.launches = lp.launches = ld.fused_launches = 0
+
+
+def examples_phase(dev, card: str) -> tuple[dict, dict]:
+    """The three examples through their ``main`` (step 19 of the
+    docstring).  Returns the figures and the kernel launches of the
+    examples' runs."""
+    import tempfile
+
+    import torch
+
+    from repro_torch.examples import packed_serving, quickstart, train_lm
+    from repro_torch.models.model import Model
+    from repro_torch.models.quantized import packed_decode_step
+
+    on_card = dev.type == "cuda"
+    dev_args = [] if on_card else ["--device", "cpu"]
+    figures: dict = {"card": card}
+    launches = dict.fromkeys(_launch_counts(), 0)
+
+    def counted(fn, want: dict):
+        """``fn()`` with the counters zeroed before and read after; each
+        read must be ``want``'s (absent: 0) on the card."""
+        _zero_launches()
+        out = fn()
+        got = _launch_counts()
+        if on_card and got != {k: want.get(k, 0) for k in got}:
+            raise AssertionError(f"launches {got}, expected {want}")
+        for k, n in got.items():
+            launches[k] += n
+        return out, got
+
+    t0 = time.perf_counter()
+    rep, got = counted(lambda: quickstart.main(dev_args),
+                       {"decode_layout_fused": 1})
+    first, last = sum(rep.losses[:5]) / 5, sum(rep.losses[-5:]) / 5
+    figures["quickstart"] = {"s": time.perf_counter() - t0,
+                             "loss_first5": first, "loss_last5": last}
+    print(f"examples quickstart: {figures['quickstart']['s']:.1f} s; cuda "
+          f"decode == numpy decode == codes; launches {got}; loss {first:.3f}"
+          f" -> {last:.3f} over {rep.steps_run} steps")
+    if not last < first:
+        raise AssertionError("quickstart: the loss did not drop")
+
+    for bits in EXAMPLE_BITS:
+        t0 = time.perf_counter()
+        n = packed_serving.config().n_layers
+        # 7 matmuls a layer in each of 8 generation steps and the
+        # agreement step; one pack and one restore decode a layer
+        mm = "stream_matmul" if bits == 3 else "packed_matmul"
+        res, got = counted(
+            lambda: packed_serving.main(["--bits", str(bits), *dev_args]),
+            {mm: 7 * n * 9, "pack_layout_fused": n,
+             "decode_layout_fused": n})
+        wall = time.perf_counter() - t0
+        cfg, pp, first_toks = res["cfg"], res["tree"], res["first"]
+        model = Model(cfg, remat="none")
+
+        def fresh():
+            return model.init_decode_state(len(first_toks),
+                                           packed_serving.MAX_SEQ,
+                                           device=dev)
+        plain = packed_serving.generate(
+            lambda st, t: packed_decode_step(cfg, pp, st, t, plain=True),
+            fresh(), first_toks, 8)
+        dense = packed_serving.generate(
+            lambda st, t: model.decode_step(res["params"], st, t),
+            fresh(), first_toks, 8)
+        print(f"examples packed_serving int{bits}: {wall:.1f} s; packed "
+              f"tokens {res['tokens']} (== the plain versions' on the "
+              f"card: {plain == res['tokens']}); dense tokens {dense} "
+              f"(equal: {dense == res['tokens']}); restore bit-identical "
+              f"{res['restore_same']}; top-1 agreement "
+              f"{res['agreement']:.0%}; launches {got}")
+        figures[f"packed_serving_int{bits}"] = {
+            "s": wall, "tokens": res["tokens"], "dense_tokens": dense,
+            "restore_same": res["restore_same"],
+            "agreement": res["agreement"], "launches": got}
+        if plain != res["tokens"] or not res["restore_same"]:
+            raise AssertionError(f"packed_serving int{bits}")
+        del res, pp
+
+    with tempfile.TemporaryDirectory(prefix="train_lm_") as d:
+        t0 = time.perf_counter()
+        rep = train_lm.main(["--ckpt", f"{d}/small", *dev_args])
+        small_s = time.perf_counter() - t0
+        figures["train_lm_small"] = {
+            "s": small_s, "steps": rep.steps_run,
+            "tail_loss": float(np.mean(rep.losses[-10:])),
+            "uniform": float(np.log(2048))}
+        print(f"examples train_lm (small preset, {rep.steps_run} steps): "
+              f"{small_s:.1f} s, tail loss "
+              f"{figures['train_lm_small']['tail_loss']:.3f} under the "
+              f"bar 0.8 x {float(np.log(2048)):.3f} (the example asserts "
+              f"it)")
+        figures["train_lm_full"] = train_lm_full(train_lm, f"{d}/full", dev)
+    return figures, launches
+
+
+def train_lm_full(train_lm, ckpt: str, dev) -> dict:
+    """train_lm's ``--preset full`` recipe for ``FULL_PRESET_STEPS``
+    steps through the example's ``train`` (its learning bar is for 300
+    steps of the small preset, so it is reported, not gated), each step
+    timed between device syncs."""
+    import torch
+
+    cfg = train_lm.config("full", 128)
+    ms: list[float] = []
+    real = train_lm.build_train_step
+
+    def timed_build(*a, **kw):
+        step = real(*a, **kw)
+
+        def timed(state, batch):
+            _sync(dev)
+            t0 = time.perf_counter()
+            out = step(state, batch)
+            _sync(dev)
+            ms.append((time.perf_counter() - t0) * 1e3)
+            return out
+        return timed
+
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    train_lm.build_train_step = timed_build
+    try:
+        rep = train_lm.train(cfg, FULL_PRESET_STEPS, 128, 8, ckpt, dev)
+    finally:
+        train_lm.build_train_step = real
+    peak = mem_gb() if dev.type == "cuda" else 0.0
+    med = float(np.median(ms[1:]))
+    tail = float(np.mean(rep.losses[-10:]))
+    print(f"examples train_lm --preset full ({cfg.name}, "
+          f"{cfg.param_count() / 1e6:.1f}M params, seq 128, batch 8, "
+          f"{rep.steps_run} steps): losses {rep.losses[0]:.3f} -> "
+          f"{rep.final_loss:.3f} (tail {tail:.3f}; the small preset's bar "
+          f"0.8 x {np.log(cfg.vocab_size):.3f} met: "
+          f"{tail < 0.8 * np.log(cfg.vocab_size)}); ms per step median "
+          f"{med:.1f} (first {ms[0]:.1f}), {8 * 128 / med * 1e3:.0f} "
+          f"tokens/s; peak {peak:.2f} GB")
+    if rep.steps_run != FULL_PRESET_STEPS or \
+            not np.isfinite(rep.losses).all():
+        raise AssertionError(f"train_lm full: {rep}")
+    return {"steps": rep.steps_run, "losses": rep.losses,
+            "ms_per_step": ms, "median_ms": med, "peak_gb": peak}
+
+
+def fp8_kv_phase(cfg, dev, card: str) -> dict:
+    """Greedy dense decode of ``cfg`` (smollm-135m at full width and
+    depth, bf16) from one set of parameters and prompts, with a bf16 and
+    a float8_e5m2 KV cache (step 20 of the docstring)."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.models.model import Model
+    from repro_torch.models.params import init_params
+
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(0),
+                         device=dev)
+    first = torch.as_tensor(np.random.default_rng(8).integers(
+        1, cfg.vocab_size, FP8_B), dtype=torch.int32, device=dev)
+    runs = {}
+    for kv in ("bfloat16", "float8_e5m2"):
+        model = Model(dataclasses.replace(cfg, kv_cache_dtype=kv),
+                      remat="none")
+        st = model.init_decode_state(FP8_B, FP8_STEPS, device=dev)
+        nbytes = sum(st[k].numel() * st[k].element_size()
+                     for k in ("k_cache", "v_cache"))
+        toks, logits, ms, t = [], [], [], first
+        for _ in range(FP8_STEPS):
+            _sync(dev)
+            t0 = time.perf_counter()
+            lg, st = model.decode_step(params, st, t)
+            _sync(dev)
+            ms.append((time.perf_counter() - t0) * 1e3)
+            t = lg.argmax(-1).to(torch.int32)
+            toks.append(t.tolist())
+            logits.append(lg.float())
+        runs[kv] = {"dtype": str(st["k_cache"].dtype), "bytes": nbytes,
+                    "ms": ms, "toks": toks, "logits": logits}
+    b16, f8 = runs["bfloat16"], runs["float8_e5m2"]
+    diffs = [float((a - b).abs().max()) for a, b in
+             zip(b16["logits"], f8["logits"])]
+    bars = [0.35 * float(a.abs().max()) + 0.5 for a in b16["logits"]]
+    agree = float(np.mean(np.asarray(b16["toks"]) == np.asarray(f8["toks"])))
+    med = {k: float(np.median(r["ms"][1:])) for k, r in runs.items()}
+    print(f"fp8 kv ({cfg.name}, {cfg.n_layers} layers, bf16 weights, "
+          f"B={FP8_B}, {FP8_STEPS} greedy dense decode steps from one "
+          f"state): cache {f8['dtype']} {f8['bytes']} B vs {b16['dtype']} "
+          f"{b16['bytes']} B (half: {2 * f8['bytes'] == b16['bytes']}); "
+          f"max |dlogit| by step up to {max(diffs):.4f} against the "
+          f"reference's bar (0.35 max|bf16| + 0.5) of at least "
+          f"{min(bars):.3f}; greedy tokens equal {agree:.0%}; ms per step "
+          f"(median) fp8 {med['float8_e5m2']:.3f} vs bf16 "
+          f"{med['bfloat16']:.3f} ({card})")
+    if f8["dtype"] != "torch.float8_e5m2" or 2 * f8["bytes"] != b16["bytes"] \
+            or any(d >= b for d, b in zip(diffs, bars)) or not all(
+                torch.isfinite(x).all() for x in f8["logits"]):
+        raise AssertionError(f"fp8 kv: {diffs} against {bars}")
+    return {"cache_bytes": {k: r["bytes"] for k, r in runs.items()},
+            "max_abs_dlogit": diffs, "bar": bars, "token_agreement": agree,
+            "ms_per_step": {k: r["ms"] for k, r in runs.items()},
+            "median_ms": med}
 
 
 def run_train(dev, card: str) -> tuple[dict, int]:
@@ -3454,6 +3791,16 @@ def main() -> int:
     t0 = time.perf_counter()
     distributed["dryrun"] = dryrun_phase(train["smollm_135m"])
     phases["dryrun"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    examples, ex_launches = examples_phase(dev, card)
+    phases["examples"] = time.perf_counter() - t0
+    for name, n in ex_launches.items():
+        by_name[name]["launches"] += n
+        by_name[name]["examples_launches"] = n
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    examples["fp8_kv"] = fp8_kv_phase(SMOLLM_135M, dev, card)
+    phases["fp8 kv"] = time.perf_counter() - t0
     print("phases (wall s): " + ", ".join(f"{k} {v:.1f}"
                                           for k, v in phases.items()))
     print(json.dumps({"serve": served}))
@@ -3461,6 +3808,7 @@ def main() -> int:
     print(json.dumps({"planner": planner}))
     print(json.dumps({"train": train}))
     print(json.dumps({"distributed": distributed}))
+    print(json.dumps({"examples": examples}))
     print(json.dumps({"kernels": kernels}))
     print(f"card: {card}")
     print(json.dumps({"ok": True, "device": {

@@ -7,7 +7,9 @@ Port of ``src/repro/models/mamba.py``: :func:`init_mamba`,
 / C_t projections play k / q.  The prefill scan runs through
 ``kernels.linear_scan.ssd_scan`` (the CUDA kernel on the card), which
 computes what the reference's ``recurrent_scan`` computes for this decay;
-the decode step runs ``linear_attention.recurrent_step``.
+the decode step runs ``linear_attention.recurrent_step``.  Placed on a
+mesh, the prefill scan runs on each rank's own rows of the batch, as
+plain tensors (:func:`apply_mamba`), so the kernel stays on the path.
 
 Decode state per layer: S (B, H, d_state, head_dim) f32.
 """
@@ -19,6 +21,7 @@ import torch.nn.functional as F
 from ..kernels.linear_scan import ssd_scan, ssd_scan_plain
 from .layers import dense_init
 from .linear_attention import recurrent_step
+from .shard_utils import dp_spec, local_rows, maybe_shard, rows_like
 
 
 def _dims(cfg) -> tuple[int, int, int]:
@@ -83,8 +86,20 @@ def apply_mamba(cfg, p: dict, x: torch.Tensor,
     # meta tensors (the dry run's counted runs) take the kernel's plain
     # version: the kernel's wrapper runs on cpu or cuda only
     scan = ssd_scan_plain if cq.is_meta else ssd_scan
-    out, state = scan(cq, bk, v, log_a, state0=state0,
+    # placed: the scan needs each row's whole sequence and every head,
+    # and the kernel takes plain tensors, so every dim but the batch is
+    # gathered (explicit) and each rank scans its own rows of the
+    # DP-sharded batch with no collective (rows are independent);
+    # ``rows_like`` places the results as the gathered v is placed.  The
+    # identity without a mesh; gradients go back through the same calls
+    cq, bk, v, log_a = (maybe_shard(a, dp_spec(), *(None,) * (a.ndim - 1))
+                        for a in (cq, bk, v, log_a))
+    if state0 is not None:
+        state0 = local_rows(maybe_shard(state0, dp_spec(), None, None, None))
+    out, state = scan(local_rows(cq), local_rows(bk), local_rows(v),
+                      local_rows(log_a), state0=state0,
                       return_state=True)                      # (B,T,H,hd)
+    out, state = rows_like(out, v), rows_like(state, v)
     out = out + xh * p["d_skip"][None, None, :, None].to(xh.dtype)
     y = (out.reshape(b, t, di) * F.silu(z)) @ p["w_out"]
     return y, state

@@ -14,7 +14,11 @@ smallest repeating sublayer template:
   over the encoder's memory; the encoder is a dense stack of its own.
 
 Every parameter leaf is stacked over periods, as in the reference;
-where the reference scans over periods, this is a Python loop.
+where the reference scans over periods, this is a Python loop.  Under a
+mesh, each period's carry is sequence-parallel at both of its ends
+(``maybe_shard(x, dp_spec(), "model", None)``, ``:171`` and ``:182``),
+and a MoE sublayer leaves that regime before its dispatch; without a
+mesh both are the identity.
 
 Remat (``forward_stack(..., remat=)``, ``:185-192``) wraps each period
 when a backward will run through it (grad enabled and an input that
@@ -44,7 +48,7 @@ from . import mamba as mam
 from . import moe as moe_mod
 from . import rwkv as rwkv_mod
 from .layers import apply_mlp, apply_norm, init_mlp, init_norm, rope_freqs
-from .shard_utils import split_heads
+from .shard_utils import dp_spec, maybe_shard, split_heads
 
 
 @dataclasses.dataclass(frozen=True)
@@ -148,6 +152,10 @@ def _sublayer_forward(cfg, spec: SubLayerSpec, p: dict, x: torch.Tensor,
                                            memory=cross_memory)
     h2 = apply_norm(cfg, p["norm2"], x)
     if spec.ffn == "moe":
+        # leave the sequence-parallel regime once, before the dispatch
+        # (``:137-143``): the capacity slots count tokens along the
+        # sequence, so MoE routes and dispatches a replicated sequence
+        h2 = maybe_shard(h2, dp_spec(), None, None)
         y, aux = moe_mod.apply_moe(cfg, p["moe"], h2)
         x = x + y
     elif spec.ffn == "mlp":
@@ -196,6 +204,12 @@ def forward_stack(cfg, blocks: list[dict], x: torch.Tensor,
     inv_freq = rope_freqs(cfg, x.device)
 
     def period(i, x):
+        # Megatron-style sequence-parallel boundary (``:165-171``, and
+        # ``:182`` at the period's end): the carry, the one activation a
+        # period saves under remat, lives with S sharded over 'model' at
+        # both ends of the period, so the saved residuals shrink by the
+        # TP degree.  The identity without a mesh (the same object back)
+        x = maybe_shard(x, dp_spec(), "model", None)
         aux_sum = torch.zeros((), dtype=torch.float32, device=x.device)
         caches = []
         for si, spec in enumerate(template):
@@ -206,6 +220,7 @@ def forward_stack(cfg, blocks: list[dict], x: torch.Tensor,
             aux_sum = aux_sum + aux
             if cache is not None:
                 caches.append(cache)
+        x = maybe_shard(x, dp_spec(), "model", None)
         return x, aux_sum, caches
 
     if remat != "none" and _needs_grad(x, blocks, cross_memory):

@@ -1,9 +1,10 @@
 """Custom-precision integer weight quantization.
 
-Own copy of ``src/repro/quant/qtypes.py:26-127`` (:class:`QuantSpec`,
-:func:`quantize`, :func:`dequantize`, and the lane-packed u32 storage
+Own copy of ``src/repro/quant/qtypes.py:26-136`` (:class:`QuantSpec`,
+:func:`quantize`, :func:`dequantize`, the lane-packed u32 storage
 :func:`pack_codes_u32` / :func:`unpack_codes_u32` that ``packed_matmul``
-reads) in PyTorch.  Symmetric, group-wise
+reads, :func:`quant_error_bound` and :func:`codes_as_numpy_elements`)
+in PyTorch.  Symmetric, group-wise
 along K, biased unsigned codes (``q + 2^(bits-1)``) and bf16 scales.
 
 Codes and bf16 scale bit patterns are bit-identical to the reference:
@@ -124,3 +125,15 @@ def pack_codes_u32(codes: torch.Tensor, bits: int) -> torch.Tensor:
 def unpack_codes_u32(packed: torch.Tensor, bits: int) -> torch.Tensor:
     """Inverse of :func:`pack_codes_u32` -> ``(..., K, N)`` uint8 codes."""
     return unpack_lanes(packed, bits).to(torch.uint8)
+
+
+def quant_error_bound(spec: QuantSpec) -> float:
+    """Half an LSB of the symmetric grid, in units of the group amax
+    (``src/repro/quant/qtypes.py:129``)."""
+    return 0.5 / spec.qmax
+
+
+def codes_as_numpy_elements(qt: QuantizedTensor) -> np.ndarray:
+    """Flatten codes to a uint64 element stream for the Iris packer
+    (``src/repro/quant/qtypes.py:134``)."""
+    return qt.codes.detach().cpu().numpy().reshape(-1).astype(np.uint64)

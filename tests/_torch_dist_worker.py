@@ -8,6 +8,7 @@ local shards), plus the files named below.  Imports the port only; the
 reference's side comes in ``WORKDIR`` (``pipe_in.npz``,
 ``ref_ckpt/``, ``port_ckpt/``, ``packed_ckpt/``).
 """
+import contextlib
 import copy
 import json
 import os
@@ -16,6 +17,7 @@ import sys
 import tempfile
 import time
 import traceback
+from unittest import mock
 
 import numpy as np
 import torch
@@ -29,7 +31,8 @@ SMALL = dict(n_layers=2, d_model=64, n_heads=4, n_kv_heads=2, d_ff=128,
 #: LayerNorm and biases, and MoE with its experts over 'model'
 TRAIN_CASES = (("gqa", "smollm-135m", SMALL),
                ("mha", "stablelm-3b", dict(SMALL, n_kv_heads=4)),
-               ("moe", "moonshot-v1-16b-a3b", SMALL))
+               ("moe", "moonshot-v1-16b-a3b", SMALL),
+               ("hybrid", "jamba-1.5-large-398b", dict(SMALL, n_layers=8)))
 
 
 def _np(t):
@@ -199,11 +202,50 @@ def sharded_steps(rank, out, res):
         init_train_state,
     )
     from repro_torch.models.model import Model
+    from repro_torch.kernels import linear_scan
+    from repro_torch.models import mamba, transformer
     from repro_torch.models.shard_utils import local, use_mesh
     from repro_torch.pytree import flatten
 
     mesh = make_debug_mesh((2, 4), ("data", "model"), device_type="cpu")
     rng = np.random.default_rng(3)
+    carry: list = []
+    scans: dict = {}
+
+    def spies() -> contextlib.ExitStack:
+        """Spies on the period carry's sequence-parallel boundary (the
+        shape and placements of what each call hands back) and on the
+        Mamba scan (its autograd Function's forward and backward, and
+        any call of the plain version from the Mamba layer in its
+        place), each counting from zero."""
+        carry.clear()
+        scans.update(forward=0, backward=0, plain=0)
+        real_shard = transformer.maybe_shard
+
+        def spy(x, *spec):
+            y = real_shard(x, *spec)
+            if spec[1:] == ("model", None):
+                carry.append((list(y.shape),
+                              [repr(p) for p in y.placements]))
+            return y
+
+        def counted(key, fn):
+            def wrapped(*args, **kw):
+                scans[key] += 1
+                return fn(*args, **kw)
+            return wrapped
+
+        fn = linear_scan._SSDScan
+        stack = contextlib.ExitStack()
+        stack.enter_context(mock.patch.object(transformer, "maybe_shard",
+                                              spy))
+        for key in ("forward", "backward"):
+            stack.enter_context(mock.patch.object(
+                fn, key, staticmethod(counted(key, getattr(fn, key)))))
+        stack.enter_context(mock.patch.object(
+            mamba, "ssd_scan_plain", counted("plain", mamba.ssd_scan_plain)))
+        return stack
+
     t0 = time.perf_counter()
     for name, arch, kw in TRAIN_CASES:
         t1 = time.perf_counter()
@@ -225,9 +267,10 @@ def sharded_steps(rank, out, res):
             s = place(state, rules)
             b = place(batch, batch_sharding(batch, mesh))
             losses = []
-            for _ in range(2):
-                s, m = step(s, b)
-                losses.append(float(local(m["loss"])))
+            with spies():
+                for _ in range(2):
+                    s, m = step(s, b)
+                    losses.append(float(local(m["loss"])))
         want = place(state, rules)
         res[f"train_{name}"] = {
             "losses": losses, "ref_losses": ref_losses,
@@ -236,6 +279,7 @@ def sharded_steps(rank, out, res):
             "placements_kept": all(
                 x.placements == y.placements
                 for x, y in zip(flatten(s), flatten(want))),
+            "carry": carry[:], "scans": dict(scans),
             "s": time.perf_counter() - t1}
     res["train_s"] = time.perf_counter() - t0
     # jamba: the serve step on the same mesh

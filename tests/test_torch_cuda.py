@@ -1306,6 +1306,37 @@ if sys.argv[1] == "train":
             s, m = step(s, b)
             got.append(float(local(m["loss"])))
     np.testing.assert_allclose(got, want, rtol=1e-5)
+elif sys.argv[1] == "jamba":
+    import dataclasses
+    from repro_torch.configs import JAMBA_1_5_LARGE
+    from repro_torch.kernels import linear_scan as ls
+    from repro_torch.launch.steps import build_train_step, init_train_state
+    cfg = dataclasses.replace(JAMBA_1_5_LARGE.reduced(moe=None, n_layers=8),
+                              dtype="float32")
+    state = init_train_state(cfg, torch.Generator(device=dev)
+                             .manual_seed(0), dev)
+    rng = np.random.default_rng(0)
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (2, 64))
+                            .astype(np.int32))
+    batch = {"tokens": toks.to(dev), "labels": toks.roll(-1, 1).to(dev)}
+    step = build_train_step(cfg)
+    s, want = state, []
+    for _ in range(2):
+        s, m = step(s, batch)
+        want.append(float(m["loss"]))
+    ps = sh.param_shardings(state["params"], mesh, fsdp=True)
+    s = sh.place(state, {"params": ps, "opt": sh.opt_state_shardings(
+        state["opt"], ps, mesh)})
+    b = sh.place(batch, sh.batch_sharding(batch, mesh))
+    got = []
+    ls.launches = 0
+    with use_mesh(mesh):
+        for _ in range(2):
+            s, m = step(s, b)
+            got.append(float(local(m["loss"])))
+    # 7 Mamba sublayers, forward and remat recompute, 2 steps
+    assert ls.launches == 28, ls.launches
+    np.testing.assert_allclose(got, want, rtol=1e-5)
 else:
     from repro_torch.engine import (Engine, EngineConfig, EngineRequest,
                                     PackedAdapter)
@@ -1366,3 +1397,100 @@ def test_placed_packed_serve_on_one_card_keeps_tokens(cuda):
     serves through ``Engine(PackedAdapter)`` with the unplaced tree's
     greedy tokens (the kernels on the card)."""
     _one_card("serve")
+
+
+def test_placed_jamba_train_step_on_one_card_equals_unplaced(cuda):
+    """Reduced jamba (``moe=None``, one period: 7 Mamba sublayers and an
+    attention one; f32) placed by the rules on a (1, 1) NCCL mesh: two
+    train steps' losses within 1e-5 of the unplaced steps', the Mamba
+    scans launching the ``ssd_scan`` kernel (28 launches)."""
+    _one_card("jamba")
+
+
+def test_quickstart_on_the_card(cuda, capsys):
+    from repro_torch.examples import quickstart
+    from repro_torch.kernels import layout_decode as ld
+
+    before = ld.fused_launches
+    rep = quickstart.main([])
+    out = capsys.readouterr().out
+    assert ld.fused_launches == before + 1
+    assert "numpy == cuda == original data for all arrays  [OK]" in out
+    assert rep.steps_run == 60
+    assert sum(rep.losses[-5:]) < sum(rep.losses[:5])
+
+
+@pytest.mark.parametrize("bits", [8, 4, 3])
+def test_packed_serving_on_the_card(cuda, bits):
+    """The example's main at each width: one pack launch and one restore
+    decode launch a layer; 7 matmul launches a layer a step (lane-packed
+    at int8 / int4, stream-direct at int3) over its 8 generation steps
+    and the agreement step; the restore bit-identical; the tokens those
+    of the plain versions on the card."""
+    from repro_torch.examples import packed_serving
+    from repro_torch.kernels import layout_decode as ld
+    from repro_torch.kernels import layout_pack as lp
+    from repro_torch.kernels import packed_matmul as pm
+    from repro_torch.kernels import stream_matmul as sm
+    from repro_torch.models.quantized import packed_decode_step
+
+    def counts():
+        return (lp.launches, ld.fused_launches, pm.launches, sm.launches)
+
+    before = counts()
+    res = packed_serving.main(["--bits", str(bits)])
+    got = [a - b for a, b in zip(counts(), before)]
+    n = res["cfg"].n_layers
+    mm = (0, 7 * n * 9) if bits == 3 else (7 * n * 9, 0)
+    assert got == [n, n, *mm]
+    assert res["restore_same"]
+    cfg, pp = res["cfg"], res["tree"]
+    from repro_torch.models.model import Model
+
+    state = Model(cfg).init_decode_state(4, packed_serving.MAX_SEQ,
+                                         device=cuda)
+    plain = packed_serving.generate(
+        lambda st, t: packed_decode_step(cfg, pp, st, t, plain=True),
+        state, res["first"], 8)
+    assert plain == res["tokens"]
+
+
+def test_train_lm_small_preset_learns_on_the_card(cuda, tmp_path):
+    from repro_torch.examples import train_lm
+
+    rep = train_lm.main(["--ckpt", str(tmp_path / "ckpt")])
+    assert rep.steps_run == 300 and np.isfinite(rep.losses).all()
+    assert np.mean(rep.losses[-10:]) < 0.8 * np.log(2048)
+
+
+def test_fp8_kv_decode_on_the_card(cuda):
+    """Reduced smollm in bf16, greedy dense decode from one state with a
+    bf16 and a float8_e5m2 cache: the fp8 cache is half the bytes and
+    its logits stay within the reference's bar of the bf16 logits."""
+    import dataclasses
+
+    from repro_torch.configs import SMOLLM_135M
+    from repro_torch.models.model import Model
+
+    cfg = SMOLLM_135M.reduced()
+    params = Model(cfg).init(torch.Generator(device=cuda).manual_seed(0),
+                             device=cuda)
+    logits, nbytes = [], []
+    for kv in ("", "float8_e5m2"):
+        model = Model(dataclasses.replace(cfg, kv_cache_dtype=kv),
+                      remat="none")
+        st = model.init_decode_state(4, 32, device=cuda)
+        nbytes.append(sum(st[k].numel() * st[k].element_size()
+                          for k in ("k_cache", "v_cache")))
+        t = torch.tensor([3, 5, 7, 11], dtype=torch.int32, device=cuda)
+        out = []
+        for _ in range(16):
+            lg, st = model.decode_step(params, st, t)
+            t = lg.argmax(-1).to(torch.int32)
+            out.append(lg.float())
+        logits.append(torch.stack(out))
+    assert st["k_cache"].dtype == torch.float8_e5m2
+    assert nbytes[1] * 2 == nbytes[0]
+    assert torch.isfinite(logits[1]).all()
+    for a, b in zip(*logits):
+        assert (a - b).abs().max() < 0.35 * a.abs().max() + 0.5

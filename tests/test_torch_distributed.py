@@ -20,10 +20,13 @@
   ``restore(shardings=)`` (a checkpoint the reference wrote too) and
   ``save_packed`` of a placed tree are bit-equal; ``pipeline_forward``
   is within 1e-5 of the reference's; the sharded train steps of a
-  reduced smollm (GQA), stablelm (MHA) and moonshot (MoE) (f32, two
-  steps) are within ``TRAIN_RTOL`` of the single-process steps, and the
-  jamba serve step within ``SERVE_ATOL``.  The group runs once a
-  session, before the reference's subprocess and not beside it.
+  reduced smollm (GQA), stablelm (MHA), moonshot (MoE) and jamba (one
+  hybrid period, its Mamba scans through ``ssd_scan``'s autograd
+  Function) (f32, two steps) are within ``TRAIN_RTOL`` of the
+  single-process steps, their period carry sequence-parallel (S sharded
+  over 'model'), and the jamba serve step within ``SERVE_ATOL``.  The
+  group runs once per pytest run, before the reference's subprocess and
+  not beside it.
 
 No test here initialises a process group, sets an environment variable
 or leaves a mesh active in the pytest process.
@@ -476,20 +479,50 @@ def test_pipeline_forward_matches_reference(group):
         np.testing.assert_allclose(out, plain, rtol=PIPE_TOL, atol=PIPE_TOL)
 
 
-@pytest.mark.parametrize("case", ["gqa", "mha", "moe"])
+@pytest.mark.parametrize("case", ["gqa", "mha", "moe", "hybrid"])
 def test_sharded_train_step_matches_single_process(group, case):
-    """Reduced smollm (GQA), stablelm (MHA, LayerNorm and biases) and
-    moonshot (MoE, experts over 'model'), f32, on (2, 4) with FSDP: two
-    placed steps' losses within ``TRAIN_RTOL`` of the single-process
-    steps', and the new state placed as the old."""
+    """Reduced smollm (GQA), stablelm (MHA, LayerNorm and biases),
+    moonshot (MoE, experts over 'model') and jamba (one period of seven
+    Mamba sublayers and an attention one, MoE every second), f32, on
+    (2, 4) with FSDP: two placed steps' losses within ``TRAIN_RTOL`` of
+    the single-process steps', and the new state placed as the old.
+    jamba's Mamba scans run through ``ssd_scan``'s autograd Function,
+    forward and backward, and never through the plain version in its
+    place."""
     _, results = group
     for res in results:
         got = res[f"train_{case}"]
         np.testing.assert_allclose(got["losses"], got["ref_losses"],
                                    rtol=TRAIN_RTOL)
         assert got["placements_kept"]
+        scans = got["scans"]
+        if case == "hybrid":
+            # 7 Mamba sublayers: forward and remat recompute, 2 steps
+            assert scans["forward"] == 28 and scans["backward"] == 14
+        else:
+            assert scans["forward"] == scans["backward"] == 0
+        assert scans["plain"] == 0
     assert any("Shard" in p and "Replicate" not in p
                for p in results[0][f"train_{case}"]["placements"])
+
+
+@pytest.mark.parametrize("case", ["gqa", "mha", "moe", "hybrid"])
+def test_period_carry_is_sequence_parallel(group, case):
+    """``forward_stack``'s carry at both ends of every period (and in
+    remat's recompute) comes back with S sharded over 'model' (the
+    (2, 4) mesh's second dim) and the batch over 'data', as the
+    reference's ``maybe_shard(x, dp_spec(), "model", None)`` places it:
+    S = 16 divides the 'model' size 4."""
+    _, results = group
+    for res in results:
+        carry = res[f"train_{case}"]["carry"]
+        # both ends of each period's forward, in each of 2 steps (the
+        # recompute adds the calls it reaches before it has every saved
+        # tensor back)
+        assert len(carry) >= 2 * 2 * (1 if case == "hybrid" else 2)
+        for shape, placements in carry:
+            assert shape[1] % 4 == 0
+            assert placements == ["Shard(dim=0)", "Shard(dim=1)"], placements
 
 
 def test_sharded_serve_step_matches_single_process(group):
