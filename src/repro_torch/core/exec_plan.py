@@ -24,6 +24,7 @@ import dataclasses
 
 import numpy as np
 
+from .. import obs
 from .layout import Layout
 from .util import round_up
 
@@ -255,7 +256,8 @@ def lower_exec(layout: Layout,
     cache = layout._exec_cache
     prog = cache.get(key)
     if prog is None:
-        prog = _lower(layout, key)
+        with obs.span("lower_exec"):
+            prog = _lower(layout, key)
         cache[key] = prog
     return prog
 

@@ -1,6 +1,8 @@
-"""Per-request serving metrics: the observability layer of the engine.
+"""Per-request serving metrics of the engine.
 
-Own copy of ``src/repro/engine/metrics.py`` (pure Python, unchanged).
+Own copy of ``src/repro/engine/metrics.py`` (pure Python), less its
+unread last-event stamp.  The spans and counters inside a step are
+:mod:`repro_torch.obs`'s.
 
 Every request is timed through four phases on the engine clock —
 
@@ -9,9 +11,8 @@ Every request is timed through four phases on the engine clock —
 
 and the registry aggregates p50/p99/mean per phase plus engine-level
 throughput counters (tokens/s, steps/s, stream-bytes/s).  The snapshot
-is a plain JSON-able dict: ``benchmarks/bench_serve.py`` writes it into
-``BENCH_serve.json``, ``launch/serve.py --metrics-out`` dumps it to a
-file, and later PRs benchmark against the same schema.
+is a plain JSON-able dict, which ``launch/serve.py --metrics-out`` dumps
+to a file for an operator.
 
 Pure Python on purpose: no numpy/jax import, so the metrics layer rides
 along anywhere the queue does (including the non-model hypothesis tests).
@@ -101,13 +102,11 @@ class EngineMetrics:
         self.stream_bytes = 0            # host->device stream upload bytes
         self.uploader_stats: dict = {}   # latest StreamUploader.stats()
         self._t0: float | None = None    # first submit (throughput window)
-        self._t_last: float | None = None
 
     # -- recording hooks (one per engine stage event) -------------------
     def _touch(self, now: float) -> None:
         if self._t0 is None:
             self._t0 = now
-        self._t_last = now
 
     def record_submit(self, uid: int, now: float | None = None) -> None:
         now = self.clock() if now is None else now

@@ -22,6 +22,7 @@ from typing import Any, Callable, Sequence
 import numpy as np
 import torch
 
+from .. import obs
 from .metrics import EngineMetrics
 from .queue import Admission, AdmissionQueue, EngineRequest
 
@@ -191,16 +192,20 @@ class PackedAdapter:
         from ..models.quantized import packed_decode_step
 
         dev = self.device
-        logits, state = packed_decode_step(
-            self.cfg, self.tree, state,
-            torch.as_tensor(np.asarray(tokens), dtype=torch.int64,
-                            device=dev),
-            weights=self.weights,
-            slot_ids=torch.as_tensor(list(active), dtype=torch.int64,
-                                     device=dev),
-            stream_source=self.uploader,
-            kv=self.kv, kv_attention=self.kv_attention)
-        return logits.to(torch.float32).cpu().numpy(), state
+        with obs.span("model_step", rows=len(active)):
+            logits, state = packed_decode_step(
+                self.cfg, self.tree, state,
+                torch.as_tensor(np.asarray(tokens), dtype=torch.int64,
+                                device=dev),
+                weights=self.weights,
+                slot_ids=torch.as_tensor(list(active), dtype=torch.int64,
+                                         device=dev),
+                stream_source=self.uploader,
+                kv=self.kv, kv_attention=self.kv_attention)
+            with obs.span("logits_copy"):
+                rows = logits.to(torch.float32).cpu().numpy()
+            obs.count("logits_copy_bytes", rows.nbytes)
+        return rows, state
 
     def stream_bytes_uploaded(self) -> int | None:
         return self.uploader.bytes_uploaded if self.uploader else None
@@ -242,6 +247,7 @@ class Engine:
             for fn in fns:
                 self.add_hook(stage, fn)
         self._stream_bytes_seen = 0
+        self._n_steps = 0                # calls of step(): its spans' index
         self.admission_order: list[int] = []
         self.completion_order: list[int] = []
 
@@ -359,8 +365,11 @@ class Engine:
     def step(self) -> dict:
         """Run one admit -> prefill -> decode -> retire cycle."""
         ctx: dict = {}
+        index = self._n_steps
+        self._n_steps += 1
         for stage in STAGES:
-            getattr(self, f"_stage_{stage}")(ctx)
+            with obs.span(f"engine.{stage}", step=index):
+                getattr(self, f"_stage_{stage}")(ctx)
             for fn in self.hooks[stage]:
                 fn(self, stage, ctx)
         return ctx

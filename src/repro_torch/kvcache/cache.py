@@ -25,6 +25,7 @@ import math
 import numpy as np
 import torch
 
+from .. import obs
 from ..core.exec_plan import lower_exec
 from ..core.iris import DEFAULT_CACHE, schedule
 from ..device import resolve_device
@@ -260,36 +261,38 @@ class PackedKVCache:
         ``pos``: ``(b,)`` positions being written; ``slot_ids``: ``(b,)``
         distinct cache rows.  The planner is never consulted.
         """
-        man = self.manifest
-        t = self._append_tables()
-        kcodes, ks16 = quantize_kv(k, man.bits)
-        vcodes, vs16 = quantize_kv(v, man.bits)
-        b = kcodes.shape[0]
-        pos = pos.to(device=self.device, dtype=torch.int64)
-        slot_ids = slot_ids.to(device=self.device, dtype=torch.int64)
-        t_in = pos % man.page_tokens
-        page = pos // man.page_tokens
-        n_flat = self.program().n_pieces + 1
-        flat = torch.zeros((b, n_flat), dtype=torch.int64, device=self.device)
-        for ai, vals in enumerate((kcodes, ks16, vcodes, vs16)):
-            per = t["per_tok"][ai]
-            start = 1 + t["base"][ai] + t_in * per
-            idx = start[:, None] + torch.arange(per, device=self.device)
-            flat.scatter_(1, idx, vals.reshape(b, -1))
-        vals = flat[:, t["src"]].reshape((b,) + t["shape"])
-        shifted = torch.where(t["left"], (vals << t["sl"]) & U32,
-                              vals >> t["sr"])
-        sel = t["tok"][None] == t_in[:, None, None, None]
-        contrib = torch.where(sel, shifted, 0)
-        maskc = torch.where(sel, t["maskbits"][None], 0)
-        value = contrib[..., 0]
-        mask = maskc[..., 0]
-        for j in range(1, t["K"]):                     # K is tiny
-            value = value | contrib[..., j]
-            mask = mask | maskc[..., j]
-        old = self.pages[layer, slot_ids, page].to(torch.int64) & U32
-        new = (old & ~mask) | value
-        self.pages[layer, slot_ids, page] = to_int32_bits(new)
+        with obs.span("kv_append", layer=layer):
+            man = self.manifest
+            t = self._append_tables()
+            kcodes, ks16 = quantize_kv(k, man.bits)
+            vcodes, vs16 = quantize_kv(v, man.bits)
+            b = kcodes.shape[0]
+            pos = pos.to(device=self.device, dtype=torch.int64)
+            slot_ids = slot_ids.to(device=self.device, dtype=torch.int64)
+            t_in = pos % man.page_tokens
+            page = pos // man.page_tokens
+            n_flat = self.program().n_pieces + 1
+            flat = torch.zeros((b, n_flat), dtype=torch.int64,
+                               device=self.device)
+            for ai, vals in enumerate((kcodes, ks16, vcodes, vs16)):
+                per = t["per_tok"][ai]
+                start = 1 + t["base"][ai] + t_in * per
+                idx = start[:, None] + torch.arange(per, device=self.device)
+                flat.scatter_(1, idx, vals.reshape(b, -1))
+            vals = flat[:, t["src"]].reshape((b,) + t["shape"])
+            shifted = torch.where(t["left"], (vals << t["sl"]) & U32,
+                                  vals >> t["sr"])
+            sel = t["tok"][None] == t_in[:, None, None, None]
+            contrib = torch.where(sel, shifted, 0)
+            maskc = torch.where(sel, t["maskbits"][None], 0)
+            value = contrib[..., 0]
+            mask = maskc[..., 0]
+            for j in range(1, t["K"]):                     # K is tiny
+                value = value | contrib[..., j]
+                mask = mask | maskc[..., j]
+            old = self.pages[layer, slot_ids, page].to(torch.int64) & U32
+            new = (old & ~mask) | value
+            self.pages[layer, slot_ids, page] = to_int32_bits(new)
         return self
 
     # -- slot lifecycle -------------------------------------------------

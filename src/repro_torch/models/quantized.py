@@ -25,6 +25,7 @@ from __future__ import annotations
 
 import torch
 
+from .. import obs
 from ..kernels.packed_matmul import packed_matmul, packed_matmul_plain
 from .attention import decode_attention, stream_decode_attention
 from .layers import activation, apply_norm, apply_rope, rope_freqs
@@ -137,12 +138,15 @@ def packed_decode_step(cfg, pp, state: dict, tokens: torch.Tensor, *,
     x = embed[tokens.to(device=device, dtype=torch.int64)] \
         * torch.tensor(cfg.d_model ** 0.5, dtype=embed.dtype, device=device)
 
+    mm_span = "matmul.stream" if use_stream else "matmul.packed"
+
     def mm(name, layer, x2d):
-        if use_stream:
-            return _pmm_direct(x2d.to(torch.float32), pp, name, layer,
-                               words=words, plain=plain)
-        return _pmm(x2d.to(torch.float32), pp.packed[name][layer],
-                    pp.scales[name][layer], pp.spec, plain=plain)
+        with obs.span(mm_span, w=name, layer=layer):
+            if use_stream:
+                return _pmm_direct(x2d.to(torch.float32), pp, name, layer,
+                                   words=words, plain=plain)
+            return _pmm(x2d.to(torch.float32), pp.packed[name][layer],
+                        pp.scales[name][layer], pp.spec, plain=plain)
 
     other = pp.other
 
@@ -164,15 +168,17 @@ def packed_decode_step(cfg, pp, state: dict, tokens: torch.Tensor, *,
         kk = apply_rope(kk, pos_b, inv_freq, cfg.mrope_sections)
         if kvc is not None:
             kvc.append(kk[:, 0], vv[:, 0], pos, rows, layer=layer)
-            att = stream_decode_attention(
-                kvc, q.to(torch.bfloat16), pos, rows, layer=layer,
-                oracle=kv_attention == "dense", plain=plain)
+            with obs.span("attention", layer=layer):
+                att = stream_decode_attention(
+                    kvc, q.to(torch.bfloat16), pos, rows, layer=layer,
+                    oracle=kv_attention == "dense", plain=plain)
         else:
             kc, vc = state["k_cache"][layer], state["v_cache"][layer]
             kc[rows, pos.to(torch.int64)] = kk[:, 0].to(kc.dtype)
             vc[rows, pos.to(torch.int64)] = vv[:, 0].to(vc.dtype)
-            att = decode_attention(q.to(torch.bfloat16), kc[rows], vc[rows],
-                                   pos)
+            with obs.span("attention", layer=layer):
+                att = decode_attention(q.to(torch.bfloat16), kc[rows],
+                                       vc[rows], pos)
         y = mm("attn/wo", layer, att.reshape(b, h * hd))
         if cfg.use_bias:
             y = y + other["attn/bo"][layer]
@@ -189,11 +195,12 @@ def packed_decode_step(cfg, pp, state: dict, tokens: torch.Tensor, *,
             y2 = y2 + other["mlp/b_down"][layer]
         x = x + y2.to(x.dtype)
 
-    x = apply_norm(cfg, other["final_norm"], x)
-    if cfg.tie_embeddings:
-        logits = x @ embed.T
-    else:
-        logits = x @ other["unembed"]
+    with obs.span("logits"):
+        x = apply_norm(cfg, other["final_norm"], x)
+        if cfg.tie_embeddings:
+            logits = x @ embed.T
+        else:
+            logits = x @ other["unembed"]
     new_state = dict(state)
     if slot_ids is None:
         new_state["pos"] = pos + 1
