@@ -307,6 +307,9 @@ LOGIT_ULPS = 4
 DECODE_STEPS = 8
 #: rows of a decode step's matmuls: the serve phases' batch
 SERVE_M = 4
+#: rows of the benchmark's served steps (64 closed-loop clients): the
+#: matmuls' second timed M, one block of 64 rows
+WIDE_M = 64
 #: the front door's layer problem plans to this C_max (by d_model; the
 #: reference planner gives the same), B_eff 0.9997 at full width
 FRONT_DOOR_C_MAX = {576: 3025}
@@ -474,6 +477,80 @@ def bound_ms(n_bytes: float, flops: float) -> tuple[float, str]:
     return (max(tb, tf) * 1e3, "bytes" if tb >= tf else "operations")
 
 
+def wide_matmul(what: str, key: str, fn, plain, mod, kernel: str, k: int,
+                n: int, weight_bytes: float, rng, dev) -> dict:
+    """``fn``, an (M, K) -> (M, N) weight matmul, at M = WIDE_M (one block
+    of 64 rows): within MM_RTOL / MM_ATOL of ``plain``, its plain version,
+    and bit-equal to the rows of its calls on 8-row slices of x; one
+    launch and one weight pass (``mod.launches``, ``mod.weight_passes``)
+    a call.  Then timed back to back and on the device, beside the plain
+    version and ``torch.matmul`` on the dequantized W.  The bound counts
+    x, ``weight_bytes`` and the f32 output once, and 2*M*K*N FLOPs."""
+    import torch
+
+    from repro_torch.kernels.stream_matmul import matmul_launch
+
+    m = WIDE_M
+    x = torch.from_numpy(rng.standard_normal((m, k), np.float32)).to(dev)
+    before = (mod.launches, mod.weight_passes)
+    got = fn(x)
+    passes = (mod.launches - before[0], mod.weight_passes - before[1])
+    want = plain(x)
+    rows = torch.cat([fn(x[i:i + 8]) for i in range(0, m, 8)])
+    torch.cuda.synchronize()
+    err = float((got - want).abs().max())
+    if not torch.allclose(got, want, rtol=MM_RTOL, atol=MM_ATOL):
+        raise AssertionError(f"{what} {key} M={m}: max |err| {err:.3g}")
+    if not torch.equal(got, rows):
+        raise AssertionError(f"{what} {key} M={m} differs from its 8-row "
+                             f"calls")
+    if passes != (1, -(-m // 64)):
+        raise AssertionError(f"{what} {key} M={m}: {passes[0]} launches, "
+                             f"{passes[1]} weight passes")
+    dense = plain(torch.eye(k, device=dev))
+    ms = time_ms(lambda: fn(x))
+    dms = device_ms(lambda: fn(x), kernel)
+    pms = time_ms(lambda: plain(x), iters=5)
+    lms = time_ms(lambda: torch.matmul(x, dense))
+    ldms = device_ms(lambda: torch.matmul(x, dense), None)
+    del dense
+    nbytes = x.numel() * 4 + weight_bytes + m * n * 4
+    flops = 2 * m * k * n
+    bms, by = bound_ms(nbytes, flops)
+    print(f"{what} {key:11s} K={k:5d} N={n:5d} M={m}: kernel {ms:.4f} ms "
+          f"(device {fmt_ms(dms)} ms, grid {matmul_launch(m, k, n)[1]}, "
+          f"{passes[1]} weight pass)  plain {pms:.4f} ms  library(matmul of "
+          f"dequantized W) {lms:.4f} ms (device {fmt_ms(ldms)} ms)  bound "
+          f"{bms:.5f} ms ({by})  max|err| {err:.3g}  == its 8-row calls")
+    return {"ms": ms, "device_ms": dms, "plain_ms": pms, "library_ms": lms,
+            "library_device_ms": ldms, "weight_passes": passes[1],
+            "bytes": nbytes, "flops": flops}
+
+
+def wide_layer(what: str, wide: list[dict], layer: dict) -> dict:
+    """Print one layer's 7 matmuls at M = WIDE_M beside the same at
+    SERVE_M (``layer``: its ms, device ms and bound ms); returns the
+    WIDE_M figures."""
+    tot = {key: sum(w[key] for w in wide) for key in
+           ("ms", "plain_ms", "library_ms", "weight_passes")}
+    for key in ("device_ms", "library_device_ms"):
+        tot[key] = None if any(w[key] is None for w in wide) else sum(
+            w[key] for w in wide)
+    bms, by = bound_ms(sum(w["bytes"] for w in wide),
+                       sum(w["flops"] for w in wide))
+    dms = tot["device_ms"]
+    print(f"{what}, one layer's 7 matmuls at M={WIDE_M}: kernel "
+          f"{tot['ms']:.4f} ms back to back (device {fmt_ms(dms)} ms, "
+          f"{fmt_ms(dms and dms / 7)} ms per launch, "
+          f"{tot['weight_passes']} weight passes)  plain "
+          f"{tot['plain_ms']:.4f} ms  library {tot['library_ms']:.4f} ms "
+          f"(device {fmt_ms(tot['library_device_ms'])} ms)  bound "
+          f"{bms:.5f} ms ({by}); at M={SERVE_M}: kernel {layer['ms']:.4f} "
+          f"ms (device {fmt_ms(layer['device_ms'])} ms)  bound "
+          f"{layer['bound_ms']:.5f} ms")
+    return {"m": WIDE_M, **tot, "bound_ms": bms, "bound_by": by}
+
+
 def check_stream_matmul(tree, rng, dev) -> dict:
     """Each of the 7 matrices at M in {1, 4, 8} plus one ragged shape;
     timed at M=4, the served batch.  The bound counts the offset tables
@@ -500,9 +577,19 @@ def check_stream_matmul(tree, rng, dev) -> dict:
     layer = {"ms": 0.0, "device_ms": 0.0, "plain_ms": 0.0,
              "library_ms": 0.0, "library_device_ms": 0.0, "bytes": 0,
              "table_bytes": 0, "flops": 0}
+    wide = []
     for key in MM_KEYS:
         w_tab, s_tab = tree.device_tables(key)
         k, n = w_tab.shape
+        wide.append(wide_matmul(
+            "stream_matmul", key, lambda x, w_tab=w_tab, s_tab=s_tab:
+            sm.stream_matmul(x, words, w_tab, s_tab, bits=bits,
+                             group_size=g),
+            lambda x, w_tab=w_tab, s_tab=s_tab: sm.stream_matmul_plain(
+                x, words, w_tab, s_tab, bits=bits, group_size=g), sm,
+            "stream_matmul_kernel", k, n,
+            -(-k * n * bits // 8) + s_tab.numel() * 2
+            + (w_tab.numel() + s_tab.numel()) * 4 / n_layers, rng, dev))
         for m in (1, 4, 8):
             x = torch.from_numpy(rng.standard_normal((m, k), np.float32)).to(dev)
             got = sm.stream_matmul(x, words, w_tab, s_tab, bits=bits,
@@ -599,7 +686,9 @@ def check_stream_matmul(tree, rng, dev) -> dict:
             "device_ms": layer["device_ms"],
             "plain_ms": layer["plain_ms"], "bound_ms": bms, "bound_by": by,
             "library_ms": layer["library_ms"],
-            "library_device_ms": layer["library_device_ms"]}
+            "library_device_ms": layer["library_device_ms"],
+            "wide": wide_layer("stream_matmul", wide,
+                               {**layer, "bound_ms": bms})}
 
 
 def check_stream_attention(cfg, rng, dev, smax: int = 256,
@@ -1491,9 +1580,17 @@ def check_packed_matmul(tree, rng, dev) -> dict:
     max_err = 0.0
     layer = {"ms": 0.0, "device_ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0,
              "library_device_ms": 0.0, "bytes": 0, "flops": 0}
+    wide = []
     for key in MM_KEYS:
         pw, sc = tree.packed[key][0], tree.scales[key][0]
         k, n = sc.shape[0] * g, sc.shape[1]
+        wide.append(wide_matmul(
+            "packed_matmul", key, lambda x, pw=pw, sc=sc:
+            pm.packed_matmul(x, pw, sc, bits=bits, group_size=g),
+            lambda x, pw=pw, sc=sc: pm.packed_matmul_plain(
+                x, pw, sc, bits=bits, group_size=g), pm,
+            "packed_matmul_kernel", k, n, pw.numel() * 4 + sc.numel() * 2,
+            rng, dev))
         for m in (1, 4, 8):
             x = torch.from_numpy(rng.standard_normal((m, k), np.float32)).to(dev)
             got = pm.packed_matmul(x, pw, sc, bits=bits, group_size=g)
@@ -1567,7 +1664,9 @@ def check_packed_matmul(tree, rng, dev) -> dict:
             "device_ms": layer["device_ms"],
             "plain_ms": layer["plain_ms"], "bound_ms": bms, "bound_by": by,
             "library_ms": layer["library_ms"],
-            "library_device_ms": layer["library_device_ms"]}
+            "library_device_ms": layer["library_device_ms"],
+            "wide": wide_layer("packed_matmul", wide,
+                               {**layer, "bound_ms": bms})}
 
 
 def pack_words_flat(prog, pieces: dict) -> np.ndarray:

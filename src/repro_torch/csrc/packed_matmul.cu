@@ -16,8 +16,10 @@
 // of bf16 scales, ~0.64 us at 3.35 TB/s with x and the output, and does
 // 2*M*K*N = 28.3 M f32 FLOPs, ~0.42 us at 67 TFLOP/s on CUDA cores; only
 // from M = 7 on do the FLOPs bound it.  Tensor cores do not apply: the
-// summation contract fixes each output to 8 sequential f32 FMA chains, and
-// a decode has M <= 8 rows.
+// summation contract fixes each output to 8 sequential f32 FMA chains.
+// At M = 64 (qwen2-vl-2b's chat64 cell) a block for each 8 rows read and
+// dequantized every weight 8 times a step; a block now covers 64 rows
+// (mm::cluster_matmul), so each weight is read once a launch.
 //
 // The first design (one block per 32-column tile: 18, 6, 6, 18, 48, 48 and
 // 18 blocks for smollm's seven matrices on 132 SMs) had each warp walk a K
@@ -28,12 +30,12 @@
 // loop, the ordered chain and the range-order merge are
 // mm::cluster_matmul in matmul_order.cuh, shared by the two, and this file
 // brings the gather.
-// - One unit of work per (column tile of BN in {8, 16, 32}, K range w),
-//   for w = 0..7: a block of 256 threads.  The 8 blocks of a column tile
-//   form one thread-block cluster along y (cluster rank = w).  The wrapper
-//   picks BN with stream_matmul's matmul_launch, so that the grid covers
-//   the 132 SMs: 144, 192, 192, 144, 384, 384 and 144 blocks for smollm at
-//   M <= 8.
+// - One unit of work per (column tile of BN in {8, 16, 32}, K range w,
+//   row block of 8 rows at M <= 8, of 64 above), for w = 0..7: a block of
+//   256 threads.  The 8 blocks of a column tile form one thread-block
+//   cluster along y (cluster rank = w).  The wrapper picks BN with
+//   stream_matmul's matmul_launch, so that the grid covers the 132 SMs:
+//   144, 192, 192, 144, 384, 384 and 144 blocks for smollm at M <= 8.
 // - A block first gathers its range's whole (rows x BN) tile of codes, the
 //   loads decoupled from the ordered sum: each a 16-byte load of 4
 //   columns' words where N % 4 == 0 (neighbouring threads on neighbouring
@@ -42,7 +44,8 @@
 //   once per (group, segment) and column, 8 bytes a load.  x's columns of
 //   the range are loaded in the same window.  A pass over shared memory
 //   then dequantizes each weight once, and only then does thread (r, c)
-//   run the ordered FMA chain p_w[r][c] out of shared memory.
+//   run the ordered FMA chain p_w[r + 8t][c] of each row tile t out of
+//   shared memory.
 // - The 8 partial sums of an output are added in w order through
 //   distributed shared memory, after one cluster barrier.
 #include <cstdint>
@@ -120,6 +123,7 @@ struct PackedSource {
   }
 };
 
+template <int TILES>
 __global__ void __cluster_dims__(1, MM_RANGES, 1)
     __launch_bounds__(mm::THREADS, 2)
 packed_matmul_kernel(const float* __restrict__ x,
@@ -127,31 +131,47 @@ packed_matmul_kernel(const float* __restrict__ x,
                      const uint16_t* __restrict__ scales,
                      float* __restrict__ out, int M, int K, int N, int bits,
                      int group_size, int bn) {
-  mm::cluster_matmul(
+  mm::cluster_matmul<TILES>(
       PackedSource{w_packed, scales, 32 / bits, bits, (1u << bits) - 1u}, x,
       out, M, K, N, bits, group_size, bn);
 }
 
+// Opts the kernel of TILES row tiles a block into its shared memory once,
+// then launches a (ceil(N / bn), 8, ceil(M / (8 TILES))) grid in clusters
+// of 8 along y on `stream`.
+template <int TILES>
+int launch(const float* x, const uint32_t* w_packed, const uint16_t* scales,
+           float* out, int M, int K, int N, int bits, int group_size, int bn,
+           void* stream) {
+  using B = mm::Block<TILES>;
+  static bool opted_in = false;
+  if (!opted_in) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        packed_matmul_kernel<TILES>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, B::SMEM);
+    if (e != cudaSuccess) return (int)e;
+    opted_in = true;
+  }
+  const dim3 grid((N + bn - 1) / bn, MM_RANGES, (M + B::BM - 1) / B::BM);
+  packed_matmul_kernel<TILES><<<grid, mm::THREADS, B::SMEM,
+                                (cudaStream_t)stream>>>(
+      x, w_packed, scales, out, M, K, N, bits, group_size, bn);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
-// Launches a (ceil(N / bn), 8, ceil(M / 8)) grid in clusters of 8 along y
-// on `stream` (bn from matmul_launch); allocates nothing.  Returns
-// cudaGetLastError().
+// Launches the kernel of one row tile a block at M <= 8, else the one of 8
+// (64 rows): a (ceil(N / bn), 8, M <= 8 ? 1 : ceil(M / 64)) grid in
+// clusters of 8 along y on `stream` (bn and the grid from matmul_launch);
+// allocates nothing.  Returns cudaGetLastError().
 extern "C" int packed_matmul_f32(const float* x, const uint32_t* w_packed,
                                  const uint16_t* scales, float* out, int M,
                                  int K, int N, int bits, int group_size,
                                  int bn, void* stream) {
-  static bool opted_in = false;
-  if (!opted_in) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        packed_matmul_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        mm::SMEM);
-    if (e != cudaSuccess) return (int)e;
-    opted_in = true;
-  }
-  const dim3 grid((N + bn - 1) / bn, MM_RANGES, (M + mm::BM - 1) / mm::BM);
-  packed_matmul_kernel<<<grid, mm::THREADS, mm::SMEM,
-                         (cudaStream_t)stream>>>(
-      x, w_packed, scales, out, M, K, N, bits, group_size, bn);
-  return (int)cudaGetLastError();
+  return M <= mm::TILE_M
+             ? launch<1>(x, w_packed, scales, out, M, K, N, bits, group_size,
+                         bn, stream)
+             : launch<mm::MAX_TILES>(x, w_packed, scales, out, M, K, N, bits,
+                                     group_size, bn, stream);
 }

@@ -25,13 +25,25 @@
 // load and an FMA per step: 72 steps at K = 576, 192 at K = 1536, each an
 // L2 round trip.
 //
+// At M = 64 (64 served slots, stablelm-3b's conv64 cell) what bounds it is
+// the same gather, repeated: with a block for each 8 rows, the eight row
+// tiles of a column tile each gathered the tile's table entries, stream
+// words and scales and dequantized every weight again, so a step fetched
+// and decoded each weight 8 times.  B1 took ~0.90 ms a launch there
+// against ~0.12 ms at M = 4 (one row tile), linear in row tiles; the
+// ordered FMA chain was not the cost.
+//
 // This design:
-// - One unit of work per (column tile of BN in {8, 16, 32}, K range w),
-//   for w = 0..7: a block of 256 threads, at most 128 registers a thread
-//   so that two blocks share an SM.  The 8 blocks of a column tile form
-//   one thread-block cluster along y (cluster rank = w).  The wrapper picks
-//   BN (matmul_launch) so that the grid covers the 132 SMs: 144, 192, 192,
-//   144, 384, 384 and 144 blocks for smollm at M <= 8.
+// - One unit of work per (column tile of BN in {8, 16, 32}, K range w,
+//   row block), for w = 0..7: a block of 256 threads, at most 128
+//   registers a thread so that two blocks share an SM.  A row block is 8
+//   rows at M <= 8 and 64 rows (8 row tiles) above: one gather of the
+//   weight tile feeds the chains of all 64 rows, so at M <= 64 every
+//   weight is gathered and dequantized once a launch.  The 8 blocks of a
+//   column tile form one thread-block cluster along y (cluster rank = w).
+//   The wrapper picks BN (matmul_launch) so that the grid covers the 132
+//   SMs: 144, 192, 192, 144, 384, 384 and 144 blocks for smollm at M <= 8,
+//   640 and 1,728 for stablelm's widths at M = 64.
 // - A block first gathers its range's whole (rows x BN) tile, the loads
 //   decoupled from the ordered sum: table entries 16 bytes a thread where
 //   N % 4 == 0, then the code words (the second word only for a field that
@@ -39,11 +51,13 @@
 //   gathered once per (group, segment) and column, not once per weight.
 //   x's columns of the range are loaded in the same window.  A pass over
 //   shared memory then dequantizes each weight once, and only then does
-//   thread (r, c) run the ordered FMA chain p_w[r][c] out of shared memory.
+//   thread (r, c) run the ordered FMA chain p_w[r + 8t][c] of each row tile
+//   t out of shared memory.
 // - The 8 partial sums of an output are added in w order through
-//   distributed shared memory: each block stores its p_w of output row r
-//   into cluster rank r's shared memory, and after one cluster barrier
-//   rank w adds and writes output row w of the tile.
+//   distributed shared memory: each block stores its p_w of output row
+//   r + 8t into cluster rank r's shared memory, and after one cluster
+//   barrier rank w adds and writes output rows w, w + 8, ... of the
+//   block.
 // The stage loop, the chain and the merge are mm::cluster_matmul in
 // matmul_order.cuh, which packed_matmul.cu shares; this file brings the
 // gather.  Staging the table tiles with cp.async (instead of loads into
@@ -51,7 +65,8 @@
 // measured slower on the card, and so did 3 blocks per SM (spills) and
 // wider gather batches.  What remains per launch is about two L2 round
 // trips for the gathers, the ordered chain (72 to 192 dependent FMAs) and
-// the cluster barrier; tensor cores do not apply to an 8-row decode.
+// the cluster barrier; tensor cores do not apply: the summation contract
+// fixes each output to 8 sequential f32 FMA chains.
 #include <cstdint>
 #include <cuda_runtime.h>
 
@@ -145,6 +160,7 @@ struct StreamSource {
   }
 };
 
+template <int TILES>
 __global__ void __cluster_dims__(1, MM_RANGES, 1)
     __launch_bounds__(mm::THREADS, 2)
 stream_matmul_kernel(const float* __restrict__ x,
@@ -154,32 +170,48 @@ stream_matmul_kernel(const float* __restrict__ x,
                      float* __restrict__ out, int M, int K, int N, int bits,
                      int group_size, int bn) {
   const uint32_t mask = bits < 32 ? (1u << bits) - 1u : 0xFFFFFFFFu;
-  mm::cluster_matmul(
+  mm::cluster_matmul<TILES>(
       StreamSource{words, n_words, w_tab, s_tab, (uint32_t)bits, mask}, x,
       out, M, K, N, bits, group_size, bn);
 }
 
+// Opts the kernel of TILES row tiles a block into its shared memory once,
+// then launches a (ceil(N / bn), 8, ceil(M / (8 TILES))) grid in clusters
+// of 8 along y on `stream`.
+template <int TILES>
+int launch(const float* x, const uint32_t* words, long long n_words,
+           const int32_t* w_tab, const int32_t* s_tab, float* out, int M,
+           int K, int N, int bits, int group_size, int bn, void* stream) {
+  using B = mm::Block<TILES>;
+  static bool opted_in = false;
+  if (!opted_in) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        stream_matmul_kernel<TILES>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, B::SMEM);
+    if (e != cudaSuccess) return (int)e;
+    opted_in = true;
+  }
+  const dim3 grid((N + bn - 1) / bn, MM_RANGES, (M + B::BM - 1) / B::BM);
+  stream_matmul_kernel<TILES><<<grid, mm::THREADS, B::SMEM,
+                                (cudaStream_t)stream>>>(
+      x, words, n_words, w_tab, s_tab, out, M, K, N, bits, group_size, bn);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
-// Launches a (ceil(N / bn), 8, ceil(M / 8)) grid in clusters of 8 along y
-// on `stream` (bn from matmul_launch); allocates nothing.  Returns
-// cudaGetLastError().
+// Launches the kernel of one row tile a block at M <= 8, else the one of 8
+// (64 rows): a (ceil(N / bn), 8, M <= 8 ? 1 : ceil(M / 64)) grid in
+// clusters of 8 along y on `stream` (bn and the grid from matmul_launch);
+// allocates nothing.  Returns cudaGetLastError().
 extern "C" int stream_matmul_f32(const float* x, const uint32_t* words,
                                  long long n_words, const int32_t* w_tab,
                                  const int32_t* s_tab, float* out, int M,
                                  int K, int N, int bits, int group_size,
                                  int bn, void* stream) {
-  static bool opted_in = false;
-  if (!opted_in) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        stream_matmul_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        mm::SMEM);
-    if (e != cudaSuccess) return (int)e;
-    opted_in = true;
-  }
-  const dim3 grid((N + bn - 1) / bn, MM_RANGES, (M + mm::BM - 1) / mm::BM);
-  stream_matmul_kernel<<<grid, mm::THREADS, mm::SMEM,
-                         (cudaStream_t)stream>>>(
-      x, words, n_words, w_tab, s_tab, out, M, K, N, bits, group_size, bn);
-  return (int)cudaGetLastError();
+  return M <= mm::TILE_M
+             ? launch<1>(x, words, n_words, w_tab, s_tab, out, M, K, N, bits,
+                         group_size, bn, stream)
+             : launch<mm::MAX_TILES>(x, words, n_words, w_tab, s_tab, out, M,
+                                     K, N, bits, group_size, bn, stream);
 }

@@ -9,7 +9,8 @@ a tree's lane-packed kernel views (:func:`repro_torch.quant.pack_codes_u32`):
 :func:`packed_matmul` is the wrapper: for CPU tensors it runs the plain
 version :func:`packed_matmul_plain` (``kernels/ref.packed_matmul_ref``);
 for CUDA tensors it launches the kernel on the current stream or raises.
-It never falls back.  ``launches`` counts kernel launches.
+It never falls back.  ``launches`` counts kernel launches, and
+``weight_passes`` the gathers of a weight tile, as ``stream_matmul``'s.
 
 The Pallas kernel needs K and N to tile by its blocks (at smollm-135m's
 full width it refuses all four matrix shapes); the function is defined
@@ -31,7 +32,7 @@ from .ref import packed_matmul_ref as packed_matmul_plain
 from .stream_matmul import matmul_launch
 
 __all__ = ["SUPPORTED_BITS", "launches", "packed_matmul",
-           "packed_matmul_plain"]
+           "packed_matmul_plain", "weight_passes"]
 
 #: element widths the lane-packed path supports: a whole number of codes
 #: per u32 word (32 % bits == 0)
@@ -39,6 +40,9 @@ SUPPORTED_BITS = (2, 4, 8)
 
 #: kernel launches made by :func:`packed_matmul`
 launches = 0
+#: gathers of a weight tile by :func:`packed_matmul`: its grids' z
+#: extents (the row blocks), summed over launches
+weight_passes = 0
 
 #: the C launch function's argument types
 _ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_void_p])
@@ -50,7 +54,7 @@ def packed_matmul(x: torch.Tensor, w_packed: torch.Tensor,
     """``x @ dequant(w_packed, scales)``: ``x`` (M, K) float, ``w_packed``
     (K * bits / 32, N) int32-stored u32 words, ``scales`` (K / group_size,
     N) bfloat16.  Returns (M, N) f32."""
-    global launches
+    global launches, weight_passes
     if bits not in SUPPORTED_BITS:
         raise ValueError(f"packed_matmul supports bits in "
                          f"{sorted(SUPPORTED_BITS)}; got {bits}")
@@ -92,11 +96,12 @@ def packed_matmul(x: torch.Tensor, w_packed: torch.Tensor,
         w_packed = w_packed.contiguous()
     if not scales.is_contiguous():
         scales = scales.contiguous()
-    bn, _ = matmul_launch(m, k, n, build.device_sms(x.device))
+    bn, grid = matmul_launch(m, k, n, build.device_sms(x.device))
     fn = build.function("packed_matmul", "packed_matmul_f32", _ARGTYPES)
     rc = fn(xf.data_ptr(), w_packed.data_ptr(), scales.data_ptr(),
             out.data_ptr(), m, k, n, bits, group_size, bn,
             build.stream_handle(x.device))
     build.check_launch("packed_matmul", rc)
     launches += 1
+    weight_passes += grid[2]
     return out

@@ -448,7 +448,8 @@ def int4_layer():
 def test_stream_matmul_bit_equal_to_packed_matmul(cuda, int4_layer, key):
     """The summation contract of csrc/matmul_order.cuh: on one int4 tree
     the stream-direct and the lane-packed kernels give the same bits for
-    every smollm matrix at M = 1, 4 and 8."""
+    every smollm matrix at M = 1, 4 and 8 (a block of one row tile) and
+    at 9, 64 and 65 (blocks of 64 rows)."""
     from repro_torch.kernels import packed_matmul as pm
     from repro_torch.kernels import stream_matmul as sm
 
@@ -456,7 +457,7 @@ def test_stream_matmul_bit_equal_to_packed_matmul(cuda, int4_layer, key):
     pw, sc = tree.packed[key][0], tree.scales[key][0]
     k = sc.shape[0] * tree.spec.group_size
     rng = np.random.default_rng(k)
-    for m in (1, 4, 8):
+    for m in (1, 4, 8, 9, 64, 65):
         x = torch.from_numpy(rng.standard_normal((m, k), np.float32)) \
             .to(cuda)
         before = sm.launches
@@ -466,6 +467,96 @@ def test_stream_matmul_bit_equal_to_packed_matmul(cuda, int4_layer, key):
         torch.cuda.synchronize()
         assert sm.launches == before + 1
         assert torch.equal(streamed, packed), (key, m)
+
+
+def _full_width_layer(name: str, bits: int):
+    """One layer of ``name`` (stablelm-3b or qwen2-vl-2b) at full width,
+    packed at ``bits`` on the card."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
+    import dataclasses
+
+    from repro_torch.configs import QWEN2_VL_2B, STABLELM_3B
+    from repro_torch.models.params import init_params
+    from repro_torch.quant import QuantSpec
+    from repro_torch.tree import pack_tree
+
+    dev = torch.device("cuda")
+    base = {"stablelm": STABLELM_3B, "qwen2_vl": QWEN2_VL_2B}[name]
+    cfg = dataclasses.replace(base, n_layers=1)
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(0),
+                         device=dev)
+    return pack_tree(cfg, params, QuantSpec(bits=bits, group_size=32),
+                     device=dev)
+
+
+@pytest.fixture(scope="module")
+def stablelm_int3_layer():
+    """One stablelm-3b layer at full width, int3 (served stream-direct)."""
+    return _full_width_layer("stablelm", 3)
+
+
+@pytest.fixture(scope="module")
+def qwen2_vl_int4_layer():
+    """One qwen2-vl-2b layer at full width, int4 (lane-packed views and
+    the Iris stream of the same codes)."""
+    return _full_width_layer("qwen2_vl", 4)
+
+
+MM_KEYS = ("attn/wq", "attn/wk", "attn/wv", "attn/wo", "mlp/w_gate",
+           "mlp/w_up", "mlp/w_down")
+
+
+@pytest.mark.parametrize("layer,kernel", [("stablelm_int3_layer", "stream"),
+                                          ("qwen2_vl_int4_layer", "stream"),
+                                          ("qwen2_vl_int4_layer", "packed")])
+def test_matmul_rows_blocks_equal_eight_row_calls(cuda, request, layer,
+                                                  kernel):
+    """A block of 64 rows gives, bit for bit, what blocks of 8 rows give:
+    at every M the output equals the rows of its calls on 8-row slices of
+    x (each a block of one row tile), for every matrix of the layer; and
+    each launch gathers the weights once for every 64 rows.  At M = 64,
+    the served batch, the output is also held to the plain version."""
+    from repro_torch.kernels import packed_matmul as pm
+    from repro_torch.kernels import stream_matmul as sm
+
+    tree = request.getfixturevalue(layer)
+    mod = sm if kernel == "stream" else pm
+    for key in MM_KEYS:
+        sc = tree.scales[key][0]
+        k = sc.shape[0] * tree.spec.group_size
+        if kernel == "stream":
+            def mm(x, key=key):
+                return tree.matmul_direct(x, key, 0)
+
+            def plain(x, key=key):
+                return tree.matmul_direct(x, key, 0, plain=True)
+        else:
+            pw = tree.packed[key][0]
+
+            def mm(x, pw=pw, sc=sc):
+                return pm.packed_matmul(x, pw, sc, bits=tree.spec.bits,
+                                        group_size=tree.spec.group_size)
+
+            def plain(x, pw=pw, sc=sc):
+                return pm.packed_matmul_plain(
+                    x, pw, sc, bits=tree.spec.bits,
+                    group_size=tree.spec.group_size)
+        rng = np.random.default_rng(k + sc.shape[1])
+        for m in (9, 16, 17, 63, 64, 65, 130):
+            x = torch.from_numpy(rng.standard_normal((m, k), np.float32)) \
+                .to(cuda)
+            before = (mod.launches, mod.weight_passes)
+            got = mm(x)
+            assert (mod.launches, mod.weight_passes) == (
+                before[0] + 1, before[1] + -(-m // 64)), (key, m)
+            rows = torch.cat([mm(x[i:i + 8]) for i in range(0, m, 8)])
+            torch.cuda.synchronize()
+            assert mod.weight_passes == before[1] + -(-m // 64) + -(-m // 8)
+            assert torch.equal(got, rows), (layer, kernel, key, m)
+            if m == 64:
+                torch.testing.assert_close(got, plain(x), rtol=MM_RTOL,
+                                           atol=MM_ATOL)
 
 
 def _decode_problem(name):
@@ -926,7 +1017,8 @@ QWEN2_VL_MATS = [(1536, 1536), (1536, 256), (1536, 8960), (8960, 1536)]
 @pytest.mark.parametrize("k,n", QWEN2_VL_MATS)
 def test_stream_and_packed_matmul_qwen2_vl_shapes(cuda, k, n):
     """int3 ``stream_matmul`` and int4 ``packed_matmul`` at qwen2-vl-2b's
-    widths and M = 1, 4, 8 against their plain versions; int4
+    widths and M = 1, 4, 8 and 64 (the served batch) against their plain
+    versions; int4
     ``packed_matmul`` bit-equal to ``stream_matmul`` over the same codes
     in an Iris stream.  The weights have the model's init scale, K^-0.5,
     so each output is O(1) as on the main path (unit weights would make a
@@ -948,7 +1040,7 @@ def test_stream_and_packed_matmul_qwen2_vl_shapes(cuda, k, n):
     words4, w_tab4, s_tab4 = _pack_stream(
         qt.codes.numpy().reshape(-1), bits16(qt.scales).numpy().reshape(-1),
         4, k, n, 32, cuda)
-    for m in (1, 4, 8):
+    for m in (1, 4, 8, 64):
         x = torch.from_numpy(rng.standard_normal((m, k), np.float32)) \
             .to(cuda)
         before = (sm.launches, pm.launches)

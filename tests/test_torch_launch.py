@@ -102,11 +102,33 @@ def test_packed_matmul_grid_covers_the_sms_at_smollm_shapes(m, k, n):
     assert SMS <= grid[0] * grid[1] * grid[2] <= 384
 
 
+#: (K, N) of stablelm-3b's and qwen2-vl-2b's seven matrices: wq, wk, wv,
+#: wo, gate, up, down
+STABLELM_MATS = [(2560, 2560)] * 4 + [(2560, 6912)] * 2 + [(6912, 2560)]
+QWEN2_VL_MATS = [(1536, 1536), (1536, 256), (1536, 256), (1536, 1536),
+                 (1536, 8960), (1536, 8960), (8960, 1536)]
+
+
+@pytest.mark.parametrize("k,n", sorted(set(STABLELM_MATS + QWEN2_VL_MATS)))
+@pytest.mark.parametrize("m", [9, 16, 64, 65, 128])
+def test_matmul_grid_gathers_each_weight_once_per_64_rows(m, k, n):
+    """Above M = 8 a block covers 64 rows, so the z extent (the row
+    blocks, each a gather of the weight tile) is ceil(M / 64), and the
+    grid still covers the SMs at the served models' widths."""
+    bn, grid = sm.matmul_launch(m, k, n)
+    assert bn in (8, 16, 32)
+    assert grid[1] == sm.K_RANGES and grid[2] == -(-m // 64)
+    assert grid[0] * bn >= n > (grid[0] - 1) * bn
+    assert grid[0] * grid[1] * grid[2] >= SMS
+    assert sm.rows_per_block(m) * grid[2] >= m
+
+
 def test_matmul_launch_prefers_wide_tiles_and_refuses_bad_shapes():
     assert sm.matmul_launch(4, 576, 1536)[0] == 32
     assert sm.matmul_launch(4, 576, 192)[0] == 8
     assert sm.matmul_launch(4, 32, 1) == (8, (1, 8, 1))
-    assert sm.matmul_launch(17, 64, 64)[1] == (8, 8, 3)
+    # above M = 8 a block covers 64 rows: one row block up to M = 64
+    assert sm.matmul_launch(17, 64, 64)[1] == (8, 8, 1)
     for m, k, n in ((0, 64, 64), (sm.MAX_M + 1, 64, 64), (4, 0, 64),
                     (4, 64, 0)):
         with pytest.raises(ValueError):
